@@ -1,0 +1,243 @@
+"""N-D camera: host aiming and the device screen-to-focal-surface map.
+
+Counterpart of ``ndt_tpu/camera.py`` (camera.{h,c}).  Aiming runs on the
+host in numpy float64 (per-frame scalar work); ``Camera.data`` packs the
+result into ``CameraData``, a dataclass of tensors on the render device
+that ``target_point`` and the engine's ray generator read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import numpy as np
+import torch
+
+from ndt_tpu_torch import mathnd
+from ndt_tpu_torch.constants import EPSILON, EYE_OFFSET
+
+
+class CameraType(enum.IntEnum):
+    """camera.h:16-19."""
+
+    NORMAL = 0  # planar virtual screen
+    VR = 1      # spherical screen
+    PANO = 2    # cylindrical screen
+
+
+@dataclasses.dataclass
+class Camera:
+    """Host camera state (camera.h:32-75).  Call :meth:`aim` after setting
+    the view parameters to derive pos/dirX/dirY/imgOrig/eyes/locals."""
+
+    dim: int
+    type: CameraType = CameraType.NORMAL
+    view_point: np.ndarray = None
+    view_target: np.ndarray = None
+    up: np.ndarray = None
+    rotation: float = 0.0
+    leveling: float = 0.0
+    zoom: float = 1.0
+    flip_x: bool = False
+    flip_y: bool = False
+    eye_offset: float = EYE_OFFSET
+    focal_distance: float = 100.0
+
+    # derived by aim()
+    pos: np.ndarray = None
+    img_orig: np.ndarray = None
+    dir_x: np.ndarray = None
+    dir_y: np.ndarray = None
+    left_eye: np.ndarray = None
+    right_eye: np.ndarray = None
+    local_x: np.ndarray = None
+    local_y: np.ndarray = None
+    local_z: np.ndarray = None
+    prepared: bool = False
+
+    def __post_init__(self):
+        d = self.dim
+        if self.view_point is None:
+            self.view_point = np.zeros(d)
+        if self.view_target is None:
+            self.view_target = np.zeros(d)
+        if self.up is None:
+            self.up = np.zeros(d)
+        self._reset_derived()
+
+    def _reset_derived(self, focal_len=2.0, x_len=1.0, y_len=1.0):
+        """camera_init/camera_reset (camera.c:63-130): the default camera
+        sits at the origin looking down +e2, screen ``focal_len`` away."""
+        e = np.eye(self.dim, dtype=np.float64)
+        self.pos = np.zeros(self.dim)
+        self.dir_x = e[0] * x_len
+        self.dir_y = e[1] * y_len
+        self.img_orig = e[2] * focal_len
+        self.left_eye = -self.eye_offset * e[0]
+        self.right_eye = self.eye_offset * e[0]
+        self.local_x = e[0].copy()
+        self.local_y = e[1].copy()
+        self.local_z = e[2].copy()
+        self.prepared = False
+
+    def set_aim(self, pos, target, up=None, rotation=0.0):
+        """camera_set_aim (camera.c:329-341)."""
+        self._reset_derived()
+        self.view_point = np.asarray(pos, dtype=np.float64)
+        self.view_target = np.asarray(target, dtype=np.float64)
+        if up is not None:
+            self.up = np.asarray(up, dtype=np.float64)
+        self.rotation = float(rotation)
+        self.leveling = 0.0
+        return self
+
+    def aim_naive(self):
+        """camera_aim_naive (camera.c:180-327): reset to the default frame,
+        then rotate the defining points in every ordered (i, j) plane so
+        the view axis lines up with the target."""
+        d = self.dim
+        pos = self.view_point.copy()
+        target = self.view_target.copy()
+        rot = self.rotation + self.leveling
+
+        # reset, keeping the previous focal length like camera_reset
+        focal_len = float(mathnd.dist(self.pos, self.img_orig))
+        x_len = float(mathnd.l2norm(self.dir_x))
+        y_len = float(mathnd.l2norm(self.dir_y))
+        self._reset_derived(focal_len, x_len, y_len)
+
+        target_dist = float(mathnd.dist(pos, target))
+        focal_len2 = float(mathnd.l2norm(self.img_orig))
+        self.img_orig = mathnd.unitize(self.img_orig) * target_dist
+        self.dir_x = self.dir_x * (target_dist / focal_len2)
+        self.dir_y = self.dir_y * (target_dist / focal_len2)
+
+        pos_x = self.img_orig + self.dir_x
+        pos_y = self.img_orig + self.dir_y
+
+        self.pos = self.pos + pos
+        self.left_eye = self.left_eye + pos
+        self.right_eye = self.right_eye + pos
+        pos_x = pos_x + pos
+        pos_y = pos_y + pos
+        self.img_orig = self.img_orig + pos
+
+        # roll in the screen plane before aiming (camera.c:249-254)
+        pts = [pos_x, pos_y, self.img_orig, self.left_eye, self.right_eye]
+        if rot != 0.0:
+            pts = [mathnd.rotate(p, self.pos, 0, 1, rot) for p in pts]
+        pos_x, pos_y, self.img_orig, self.left_eye, self.right_eye = pts
+
+        # aim via atan2 in every ordered (i, j) plane (camera.c:257-289)
+        for i in range(d):
+            for j in range(d):
+                if i == j:
+                    continue
+                cam_rise = self.img_orig[j] - self.pos[j]
+                cam_run = self.img_orig[i] - self.pos[i]
+                tar_rise = target[j] - self.pos[j]
+                tar_run = target[i] - self.pos[i]
+                if abs(cam_rise) < EPSILON:
+                    cam_rise = 0.0
+                if abs(cam_run) < EPSILON:
+                    cam_run = 0.0
+                if abs(tar_rise) < EPSILON:
+                    tar_rise = 0.0
+                if abs(tar_run) < EPSILON:
+                    tar_run = 0.0
+                cam_angle = np.arctan2(cam_rise, cam_run)
+                tar_angle = np.arctan2(tar_rise, tar_run)
+                if tar_angle < cam_angle:
+                    tar_angle += 2.0 * np.pi
+                ang = tar_angle - cam_angle
+                pos_x = mathnd.rotate(pos_x, self.pos, i, j, ang)
+                pos_y = mathnd.rotate(pos_y, self.pos, i, j, ang)
+                self.img_orig = mathnd.rotate(self.img_orig, self.pos,
+                                              i, j, ang)
+                self.left_eye = mathnd.rotate(self.left_eye, self.pos,
+                                              i, j, ang)
+                self.right_eye = mathnd.rotate(self.right_eye, self.pos,
+                                               i, j, ang)
+
+        self.dir_x = pos_x - self.img_orig
+        self.dir_y = pos_y - self.img_orig
+
+        # local frame for VR/pano BEFORE flips/zoom (camera.c:303-309)
+        self.local_x = mathnd.unitize(self.dir_x)
+        self.local_y = mathnd.unitize(self.dir_y)
+        self.local_z = mathnd.unitize(self.img_orig - self.pos)
+        self.prepared = True
+
+        if self.flip_x:
+            self.dir_x = -self.dir_x
+            self.left_eye, self.right_eye = self.right_eye, self.left_eye
+        if self.flip_y:
+            self.dir_y = -self.dir_y
+        if self.zoom != 1.0 and abs(self.zoom) >= EPSILON:
+            self.dir_x = self.dir_x / self.zoom
+            self.dir_y = self.dir_y / self.zoom
+        return self
+
+    def aim(self):
+        """camera_aim (camera.c:132-178): with an 'up' vector, search the
+        roll ('leveling') angle that best aligns up with the screen's Y,
+        halving the step whenever it stops improving; then aim naively."""
+        if float(mathnd.l2norm(self.up)) > 0:
+            tmp = Camera(self.dim)
+            tmp.set_aim(self.view_point, self.view_target, self.up, 0.0)
+            tmp.aim_naive()
+            ang = float(mathnd.angle(self.up, tmp.dir_y))
+            curr = 0.0
+            delta = np.pi / 10.0
+            while abs(delta) > (EPSILON / 1000.0):
+                last = ang
+                tmp.set_aim(self.view_point, self.view_target, self.up, curr)
+                tmp.aim_naive()
+                ang = float(mathnd.angle(self.up, tmp.dir_y))
+                if ang >= last:
+                    delta = -delta / 2.0
+                curr += delta
+            self.leveling = curr
+        return self.aim_naive()
+
+    def data(self, dtype=torch.float32, device="cpu"):
+        """Pack what the planar camera's center-eye rays read into tensors
+        on ``device`` (the eyes, VR/PANO angles and aperture come with
+        their ports)."""
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
+                                   device=device)
+
+        return CameraData(
+            cam_type=int(self.type), pos=t(self.pos),
+            img_orig=t(self.img_orig), dir_x=t(self.dir_x),
+            dir_y=t(self.dir_y), focal_distance=t(self.focal_distance))
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraData:
+    """Device-side camera parameters: [D] vectors and a 0-d scalar."""
+
+    cam_type: int
+    pos: torch.Tensor
+    img_orig: torch.Tensor
+    dir_x: torch.Tensor
+    dir_y: torch.Tensor
+    focal_distance: torch.Tensor
+
+
+def target_point(cam: CameraData, x, y, dist):
+    """camera_target_point (camera.c:504-581): map normalized screen coords
+    ``x, y`` ([R] tensors in [-0.5, 0.5]) to points on the focal surface.
+    Only the planar NORMAL camera is ported."""
+    if cam.cam_type != int(CameraType.NORMAL):
+        raise NotImplementedError(
+            "VR/PANO cameras are not ported yet (ROADMAP Queue 1: "
+            "stereo/VR)")
+    pixel = (cam.img_orig + cam.dir_x * x[..., None]
+             + cam.dir_y * y[..., None])
+    screen_dist = mathnd.dist(cam.img_orig, cam.pos)
+    temp = pixel - cam.pos
+    scaled = cam.pos + temp * (dist / screen_dist)
+    return torch.where(screen_dist > EPSILON, scaled, pixel)

@@ -1,0 +1,100 @@
+"""Build of the CUDA kernels: ``csrc/*.cu`` -> one shared library with a
+plain C interface, loaded with ctypes.
+
+The library is compiled at first use, from this checkout's sources only,
+with ``nvcc -gencode arch=compute_90a,code=sm_90a`` (Hopper) into
+``ndt_tpu_torch/_build/`` under a name that hashes the sources and flags,
+so a stale library is never loaded.  The first build prints the nvcc
+version line and ptxas' per-kernel register / spill report.  A missing
+nvcc or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD = os.path.join(_PKG, "_build")
+# -fmad=false: keep a*b+c as two roundings, as the plain twins and the JAX
+# reference compute it (see csrc/families.cuh)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
+
+_lib = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return nvcc
+
+
+def nvcc_version(nvcc: str) -> str:
+    out = subprocess.run([nvcc, "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[-1]
+
+
+def _sources():
+    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def build() -> str:
+    """Compile the library if this checkout's build is missing; return its
+    path."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(_BUILD, f"libndt_kernels_{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    nvcc = find_nvcc()
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cus = [s for s in _sources() if s.endswith(".cu")]
+    t0 = time.perf_counter()
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cus],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    print(f"[ndt_tpu_torch] {nvcc_version(nvcc)}")
+    print(f"[ndt_tpu_torch] built {os.path.basename(out)} in "
+          f"{time.perf_counter() - t0:.1f} s; ptxas:")
+    for line in (res.stdout + res.stderr).splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print("  " + line.strip())
+    return out
+
+
+def load_library():
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        lib.ndt_trace_closest.argtypes = (
+            [_P] * 6 + [_I] + [_P] * 5 + [_I, _P])
+        lib.ndt_trace_closest.restype = _I
+        lib.ndt_shade_carry.argtypes = (
+            [_P] * 8 + [ctypes.c_char_p, _I] + [_P] * 2 + [_I, _I, _I]
+            + [_P] * 10 + [_I, _P])
+        lib.ndt_shade_carry.restype = _I
+        _lib = lib
+    return _lib

@@ -1,0 +1,210 @@
+"""Host-side scene object model: the builder API users construct scenes with.
+
+Counterpart of ``ndt_tpu/scene/model.py`` (object.h, scene.h).  All arrays
+are numpy float64, as in the C.  The type registry holds the families this
+port renders: ``sphere``, ``hplane``, ``hdisk`` and ``cylinder``; the other
+types (hcylinder, orthotope, facet, hfacet, hcube, cluster) and
+``Scene.cluster`` come with later ROADMAP items.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ndt_tpu_torch.camera import Camera
+from ndt_tpu_torch.constants import EPSILON
+
+
+@dataclasses.dataclass(frozen=True)
+class ObjectTypeInfo:
+    """Parameter schema for an object type (objects/object.h:12-20):
+    how many positions, directions, sizes and flags it needs."""
+
+    name: str
+    n_pos: int
+    n_dir: int
+    n_size: int
+    n_flag: int
+
+
+_REGISTRY: Dict[str, ObjectTypeInfo] = {info.name: info for info in (
+    ObjectTypeInfo("sphere", 1, 0, 1, 0),      # sphere.c:39-50
+    ObjectTypeInfo("hplane", 1, 1, 0, 0),      # hplane.c:16-28
+    ObjectTypeInfo("hdisk", 1, 1, 1, 0),       # hdisk.c:41-53
+    ObjectTypeInfo("cylinder", 2, 0, 1, 1),    # cylinder.c:58-71
+)}
+
+
+def object_types() -> List[str]:
+    return sorted(_REGISTRY.keys())
+
+
+class Object:
+    """Generic scene object (object.h:23-74): a type name, a material and
+    growable parameter lists."""
+
+    def __init__(self, dim: int, type_name: str, name: str = ""):
+        if type_name not in _REGISTRY:
+            raise ValueError(f"unknown object type {type_name!r}; "
+                             f"registered: {object_types()}")
+        self.dim = dim
+        self.type_name = type_name
+        self.name = name
+        self.color = np.zeros(3, dtype=np.float64)
+        self.reflect = np.zeros(3, dtype=np.float64)
+        self.transparent = False
+        self.refract_index = 1.0
+        self.pos: List[np.ndarray] = []
+        self.dir: List[np.ndarray] = []
+        self.size: List[float] = []
+        self.flag: List[int] = []
+        # bounds: radius < 0 means infinite (object.c:588-598); None = unset
+        self.bounds_center: Optional[np.ndarray] = None
+        self.bounds_radius: Optional[float] = None
+
+    # -- builder API (object.c:456-515) -------------------------------
+    def add_pos(self, v):
+        self.pos.append(np.asarray(v, dtype=np.float64).copy())
+        return self
+
+    def add_dir(self, v):
+        self.dir.append(np.asarray(v, dtype=np.float64).copy())
+        return self
+
+    def add_size(self, s):
+        self.size.append(float(s))
+        return self
+
+    def add_flag(self, f):
+        self.flag.append(int(f))
+        return self
+
+    def set_color(self, r, g, b):
+        self.color = np.array([r, g, b], dtype=np.float64)
+        return self
+
+    def set_reflect(self, r, g, b):
+        self.reflect = np.array([r, g, b], dtype=np.float64)
+        return self
+
+    def validate(self):
+        """object_validate (object.c:336-408)."""
+        info = _REGISTRY[self.type_name]
+        checks = [("positions", len(self.pos), info.n_pos),
+                  ("directions", len(self.dir), info.n_dir),
+                  ("sizes", len(self.size), info.n_size),
+                  ("flags", len(self.flag), info.n_flag)]
+        for what, have, need in checks:
+            if have < need:
+                raise ValueError(
+                    f"object {self.name!r} ({self.type_name}): "
+                    f"needs {need} {what}, has {have}")
+        for p in self.pos + self.dir:
+            if p.shape != (self.dim,):
+                raise ValueError(
+                    f"object {self.name!r}: parameter vector of shape "
+                    f"{p.shape} in a {self.dim}-D object")
+        return self
+
+    def bounding_points(self):
+        """(center, radius) spheres whose union encloses the object; an
+        empty list means infinite extent (each plugin's bounding_points)."""
+        t = self.type_name
+        if t == "sphere":
+            return [(self.pos[0], self.size[0])]                # sphere.c:52-55
+        if t == "hplane":
+            return []                                           # hplane.c:30-37
+        if t == "hdisk":
+            return [(self.pos[0], self.size[0])]                # hdisk.c:55-59
+        if t == "cylinder":
+            if len(self.flag) < 2 or self.flag[1] == 0:         # cylinder.c:73-83
+                return [(self.pos[0], self.size[0]),
+                        (self.pos[1], self.size[0])]
+            return []
+        raise ValueError(f"no bounding rule for type {t!r}")
+
+    def get_bounds(self):
+        """object_get_bounds (object.c:582-603): minimal enclosing sphere
+        of the bounding points (Nelder-Mead refined) + EPSILON; no points
+        => radius -1 (infinite)."""
+        from ndt_tpu.utils.bounding import optimal_bounding_sphere
+
+        pts = self.bounding_points()
+        if not pts:
+            self.bounds_center = np.zeros(self.dim)
+            self.bounds_radius = -1.0
+            return self
+        center, radius = optimal_bounding_sphere(pts)
+        if radius > 0.0:
+            radius += EPSILON
+        self.bounds_center, self.bounds_radius = center, radius
+        return self
+
+
+class LightType(enum.IntEnum):
+    """scene.h:16-22."""
+
+    AMBIENT = 0
+    POINT = 1
+    DIRECTIONAL = 2
+    SPOT = 3
+    DISK = 4
+    RECT = 5
+
+
+class Light:
+    """scene.h:36-49.  New lights default to POINT (scene.c:118)."""
+
+    def __init__(self, dim: int, type: LightType = LightType.POINT,
+                 name: str = ""):
+        self.dim = dim
+        self.type = LightType(type)
+        self.name = name
+        self.pos = np.zeros(dim, dtype=np.float64)
+        self.dir = np.zeros(dim, dtype=np.float64)
+        self.u1 = np.zeros(dim, dtype=np.float64)
+        self.v1 = np.zeros(dim, dtype=np.float64)
+        self.radius = 0.0
+        self.color = np.zeros(3, dtype=np.float64)
+        self.angle = 0.0  # spot cone half-angle, degrees (ndt.c:204)
+
+    def set_color(self, r, g, b):
+        self.color = np.array([r, g, b], dtype=np.float64)
+        return self
+
+
+class Scene:
+    """scene.h:51-62 + builder helpers from scene.c."""
+
+    def __init__(self, name: str, dim: int):
+        self.name = name
+        self.dim = dim
+        self.objects: List[Object] = []
+        self.lights: List[Light] = []
+        self.ambient = np.zeros(3, dtype=np.float64)
+        self.bg = np.zeros(3, dtype=np.float64)
+        self.bg_alpha = 1.0  # scene_init (scene.c:40)
+        self.cam = Camera(dim)
+
+    def add_object(self, type_name: str, name: str = "") -> Object:
+        """scene_alloc_object (scene.c:60-78)."""
+        obj = Object(self.dim, type_name, name)
+        self.objects.append(obj)
+        return obj
+
+    def add_light(self, type: LightType = LightType.POINT,
+                  name: str = "") -> Light:
+        """scene_alloc_light (scene.c:107-122)."""
+        lgt = Light(self.dim, type, name)
+        self.lights.append(lgt)
+        return lgt
+
+    def validate(self):
+        """scene_validate_objects (scene.c:228-239)."""
+        for o in self.objects:
+            o.validate()
+        return self

@@ -1,0 +1,35 @@
+"""The workload scenes, with the reference's plugin ABI (README.md:60-135):
+
+    scene_setup(scn, dimensions, frame, frames, config) -> None | int
+    scene_frames(dimensions, config) -> int           (optional)
+    scene_cleanup() -> None                           (optional)
+
+where ``scn`` is an ``ndt_tpu_torch.scene.Scene``.  Only ``balls`` is
+ported so far; the other scenes of ``ndt_tpu.scenes`` follow with the
+families they need (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import importlib
+import os
+
+_SCENES = {
+    "balls": "ndt_tpu_torch.scenes.balls",
+}
+
+
+def scene_names():
+    return sorted(_SCENES)
+
+
+def get_scene(name: str):
+    """Resolve a scene module by name ('balls', 'scenes/balls.so',
+    'balls.py')."""
+    base = os.path.basename(name)
+    for suffix in (".so", ".py", ".c"):
+        if base.endswith(suffix):
+            base = base[: -len(suffix)]
+    if base in _SCENES:
+        return importlib.import_module(_SCENES[base])
+    raise ValueError(f"unknown scene {name!r}; available: {scene_names()}")

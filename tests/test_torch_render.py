@@ -1,0 +1,138 @@
+"""The port's whole slice: render_frame against the JAX engine and the C
+reference's golden frame, and the port's independence from JAX."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_common import W, H, jax_balls, port_balls, reset_port_scenes
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_balls():
+    yield
+    reset_port_scenes()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_render_frame_matches_jax_engine():
+    """balls 4-D f0 at 64x48 on the CPU (the kernels' twins) against the
+    JAX engine on its Pallas kernels in interpret mode: < 0.2% of pixels
+    off by > 1e-3, the depth maps (1/t of the primary hit) within f32
+    rounding, and the traced-ray counts within 0.2%."""
+    from ndt_tpu.render import engine as jax_engine
+    from ndt_tpu.render import trace as trace_mod
+    from ndt_tpu_torch.render.engine import RenderOptions, render_frame
+
+    trace_mod.set_trace_impl("pallas-interpret")
+    try:
+        jimg, jdepth, jrays = jax_engine.render_frame(
+            jax_balls(), jax_engine.RenderOptions(width=W, height=H,
+                                                  record_depth=True))
+    finally:
+        trace_mod.set_trace_impl("auto")
+    img, depth, rays = render_frame(
+        port_balls(), RenderOptions(width=W, height=H, record_depth=True))
+    assert img.shape == (H, W, 3) and img.dtype == np.float32
+    assert (depth > 0).mean() > 0.5
+    np.testing.assert_allclose(depth, np.asarray(jdepth), rtol=1e-5,
+                               atol=1e-7)
+    d = np.abs(img - np.asarray(jimg)).max(-1)
+    assert (d > 1e-3).mean() < 0.002, d.max()
+    assert abs(rays - jrays) <= 0.002 * jrays, (rays, jrays)
+
+
+def test_balls_band_matches_c_golden():
+    """Rows 180:260 of the 640x480 flagship frame against the C
+    reference's golden, RMSE < 1e-3 (as tests/test_render.py holds the
+    JAX engine)."""
+    import dataclasses
+
+    from conftest import load_golden
+    from ndt_tpu_torch.image import linear_to_bytes
+    from ndt_tpu_torch.render.engine import (RenderOptions, _pixel_grid,
+                                             render_tile)
+    from ndt_tpu_torch.scene import compile_scene, to_device
+
+    width, height, rows = 640, 480, slice(180, 260)
+    scn = port_balls()
+    sd = to_device(compile_scene(scn), "cpu")
+    cam = scn.cam.data()
+    cam = dataclasses.replace(
+        cam, dir_x=cam.dir_x * float(np.float32(width / height)))
+    xx, yy = _pixel_grid(width, height, np.float32)
+    c, d, n = render_tile(sd, cam, torch.as_tensor(xx[rows].ravel()),
+                          torch.as_tensor(yy[rows].ravel()),
+                          RenderOptions(width=width, height=height))
+    mine = linear_to_bytes(c.numpy().reshape(-1, width, 3)) / 255.0
+    ref = load_golden("balls_4d_640x480_f0.png")[rows]
+    rmse = np.sqrt(((mine - ref) ** 2).mean())
+    assert rmse < 1e-3, f"RMSE {rmse}"
+    assert int(n) >= 80 * width
+
+
+def test_port_renders_without_jax():
+    """A fresh interpreter imports the port, renders 16x12, and has loaded
+    neither jax nor flax."""
+    code = (
+        "import sys, numpy as np\n"
+        "from ndt_tpu_torch.scene import Scene\n"
+        "from ndt_tpu_torch.scenes import get_scene\n"
+        "from ndt_tpu_torch.render.engine import RenderOptions, "
+        "render_frame\n"
+        "scn = Scene('balls', 4)\n"
+        "get_scene('balls').scene_setup(scn, 4, 0, 1500)\n"
+        "img, _, rays = render_frame(scn, RenderOptions(width=16, "
+        "height=12))\n"
+        "assert img.shape == (12, 16, 3) and np.isfinite(img).all()\n"
+        "assert rays > 0\n"
+        "bad = [m for m in ('jax', 'flax') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_render_frame_on_cuda_device_raises_without_card():
+    """An explicit CUDA device is never served by the CPU twins."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from ndt_tpu_torch.render.engine import RenderOptions, render_frame
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_frame(port_balls(), RenderOptions(width=16, height=12),
+                     device="cuda")
+
+
+@pytest.mark.gpu
+def test_render_frame_on_card_matches_cpu():
+    """On the card: a 64x48 frame through the CUDA kernels against the
+    same frame through the CPU twins, and both launch counters rose."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ndt_tpu_torch.render.engine import RenderOptions, render_frame
+    from ndt_tpu_torch.render.kernels import launch_counts
+
+    opts = RenderOptions(width=W, height=H)
+    before = dict(launch_counts)
+    gpu, _, n_gpu = render_frame(port_balls(), opts, device="cuda")
+    assert all(launch_counts[k] > before[k] for k in before)
+    cpu, _, n_cpu = render_frame(port_balls(), opts, device="cpu")
+    assert (np.abs(gpu - cpu).max(-1) > 1e-3).mean() < 0.002
+    assert abs(n_gpu - n_cpu) <= 0.002 * n_cpu

@@ -1,0 +1,228 @@
+#!/usr/bin/env python3
+"""Where the time of one ndt_tpu_torch frame goes, on one CUDA card.
+
+    python3 tools/profile_frame.py [--width 1920 --height 1080]
+                                   [--trace PATH]
+
+Renders the 4-D balls scene, frame 0, through the port's render_frame on
+the card: two warm-up frames, three timed frames (host clock around
+torch.cuda.synchronize()), then one frame under torch.profiler (CPU + CUDA
+activities).  The profiled frame's functions are wrapped in
+record_function spans by this script alone (the port has no profiling
+switch).  It prints:
+
+  * the card's name and power limit (nvidia-smi);
+  * the unprofiled s/frame;
+  * device busy time: the union of kernel, memcpy and memset intervals of
+    the chrome trace inside the frame's span, as ms and as a share of the
+    span, split by kind (the two CUDA kernels by name, copies by
+    direction, the top other kernels by name);
+  * host spans: calls and total ms of compile, upload, primary rays, the
+    fused step, cull_lists, the shadow culls and both kernel wrappers;
+  * the count of kernel launches in the frame;
+  * one JSON line of these numbers.
+
+It exits nonzero if no CUDA device is present or the trace holds no device
+event (device time then is not measured).  ``--trace`` keeps the chrome
+trace.  JAX is never imported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import functools
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# module attribute -> span name of each wrapped function
+SPANS = {
+    ("engine", "compile_scene"): "compile_scene",
+    ("engine", "to_device"): "to_device",
+    ("engine", "gen_rays"): "gen_rays",
+    ("engine", "trace_fused_step"): "trace_fused_step",
+    ("trace", "cull_lists"): "cull_lists",
+    ("trace", "_shadow_culls"): "_shadow_culls",
+    ("trace", "trace_closest"): "trace_closest",
+    ("trace", "shade_carry"): "shade_carry",
+}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def balls_scene():
+    from ndt_tpu_torch.scene import Scene
+    from ndt_tpu_torch.scenes import get_scene
+
+    mod = get_scene("balls")
+    scn = Scene("balls", 4)
+    mod.scene_setup(scn, 4, 0, 1500)
+    mod.scene_cleanup()
+    scn.cam.aim()
+    return scn
+
+
+def wrap_spans(modules):
+    import torch
+
+    def wrapped(name, fn):
+        @functools.wraps(fn)
+        def call(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return call
+
+    for (mod, attr), name in SPANS.items():
+        setattr(modules[mod], attr, wrapped(name, getattr(modules[mod], attr)))
+
+
+def union_ms(intervals, lo, hi):
+    """Length in ms of the union of [start, end) us intervals clipped to
+    [lo, hi)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((max(s, lo), min(e, hi)) for s, e in intervals):
+        if e <= s:
+            continue
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def device_kind(ev):
+    name = ev["name"]
+    if ev["cat"] != "kernel":
+        for tag, kind in (("DtoH", "copy device->host"),
+                          ("HtoD", "copy host->device"),
+                          ("DtoD", "copy device->device")):
+            if tag in name:
+                return kind
+        return ev["cat"]
+    for kern in ("trace_closest_kernel", "shade_carry_kernel"):
+        if kern in name:
+            return kern
+    return "torch: " + name.split("<")[0].split("(")[0][:60]
+
+
+def analyse(trace):
+    evs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    frame = [e for e in evs if e["name"] == "frame"
+             and e.get("cat") == "user_annotation"]
+    if not frame:
+        raise RuntimeError("the trace holds no 'frame' span")
+    lo = frame[0]["ts"]
+    hi = lo + frame[0]["dur"]
+    dev = [e for e in evs if e.get("cat") in DEVICE_CATS
+           and lo <= e["ts"] < hi]
+    if not dev:
+        raise RuntimeError("the profiler recorded no device event: device "
+                           "time not measured")
+    span_ms = (hi - lo) / 1e3
+    busy_ms = union_ms([(e["ts"], e["ts"] + e["dur"]) for e in dev], lo, hi)
+    by_kind = collections.defaultdict(lambda: [0, 0.0])
+    for e in dev:
+        k = by_kind[device_kind(e)]
+        k[0] += 1
+        k[1] += e["dur"] / 1e3
+    host = collections.defaultdict(lambda: [0, 0.0])
+    for e in evs:
+        if (e.get("cat") == "user_annotation" and e["name"] in
+                SPANS.values() and lo <= e["ts"] < hi):
+            h = host[e["name"]]
+            h[0] += 1
+            h[1] += e["dur"] / 1e3
+    launches = sum(1 for e in evs if e.get("cat") == "cuda_runtime"
+                   and e["name"] in ("cudaLaunchKernel", "cuLaunchKernel",
+                                     "cudaLaunchKernelExC")
+                   and lo <= e["ts"] < hi)
+    return dict(span_ms=span_ms, busy_ms=busy_ms,
+                busy_share=busy_ms / span_ms,
+                device_events=len(dev),
+                kernel_launches=launches,
+                device_by_kind={k: {"n": n, "ms": ms}
+                                for k, (n, ms) in by_kind.items()},
+                host_spans={k: {"calls": n, "ms": ms}
+                            for k, (n, ms) in host.items()})
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--trace", help="keep the chrome trace at this path")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_frame: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from ndt_tpu_torch.kernels import build
+    from ndt_tpu_torch.render import engine, trace
+    from ndt_tpu_torch.render.engine import RenderOptions, render_frame
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
+    print(card)
+    build.load_library()
+    W, H = args.width, args.height
+    opts = RenderOptions(width=W, height=H)
+    scn = balls_scene()
+    for _ in range(2):
+        render_frame(scn, opts, device="cuda")
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _, _, rays = render_frame(scn, opts, device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"[frame] balls 4-D f0 {W}x{H} on {card}: unprofiled s/frame "
+          f"{', '.join(f'{t:.4f}' for t in times)}; {rays} rays/frame")
+
+    wrap_spans({"engine": engine, "trace": trace})
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("frame"):
+            render_frame(scn, opts, device="cuda")
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = args.trace or os.path.join(tmp, "frame.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            res = analyse(json.load(f))
+    print(f"[profile] frame span {res['span_ms']:.3f} ms under the profiler;"
+          f" device busy {res['busy_ms']:.3f} ms = "
+          f"{100 * res['busy_share']:.1f}% busy, "
+          f"{100 * (1 - res['busy_share']):.1f}% idle; "
+          f"{res['kernel_launches']} kernel launches, "
+          f"{res['device_events']} device events")
+    print("[profile] device time by kind (events, ms):")
+    for k, d in sorted(res["device_by_kind"].items(),
+                       key=lambda kv: -kv[1]["ms"])[:12]:
+        print(f"  {d['ms']:10.3f} ms {d['n']:6d}  {k}")
+    print("[profile] host spans (calls, ms):")
+    for k, d in sorted(res["host_spans"].items(),
+                       key=lambda kv: -kv[1]["ms"]):
+        print(f"  {d['ms']:10.3f} ms {d['calls']:6d}  {k}")
+    print(json.dumps(dict(card=card, width=W, height=H, rays=rays,
+                          unprofiled_s=times, **res)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
