@@ -3,26 +3,47 @@
 
     python3 chip_smoke.py
 
-Phases (each prints its own lines; any failure exits nonzero with no "ok"
-line):
+Phases (each prints its own lines and its seconds; any failure exits
+nonzero with no "ok" line):
   1. the card (nvidia-smi name and power limit), torch, nvcc;
-  2. the nvcc build of the kernels;
-  3. each CUDA kernel against its plain PyTorch twin on the card, at the
-     main path's shapes: one 2^20-ray batch of 1080p balls primary rays,
-     then the first bounce's rays; CUDA-event times of kernel and twin;
-  4. render_frame of the 4-D balls scene, frame 0, 640x480 on the card:
-     full frame against the C reference's golden PNG (RMSE < 1e-3), rows
-     180:260 against the same rows rendered on the CPU through the twins;
-  5. render_frame at 1920x1080 on the card, warmed, timed by the host clock
-     around torch.cuda.synchronize(): s/frame, rays/frame, Mrays/s; the
-     kernels' launch counters are reset right before this run and read
-     right after it.
+  2. the nvcc build of the kernels (one nvcc per source, in parallel);
+  3. each CUDA kernel variant against its plain PyTorch twin on the card,
+     at the shapes its path gives it, then its time (CUDA events), the
+     twin's, and the least time the card could take (bound_ms):
+       - trace_closest, shade_carry ('d' light): one 2^20-ray batch of
+         1080p balls 4-D primary rays, then their first bounce;
+       - trace_gated (orthotope slab, kd gate, A = 2), shade_escalate,
+         shade_local and shade_point (carry with point lights): anim6d
+         6-D frame 1 at 640x480 (307200 rays), primary and first bounce;
+       - shade_spot (carry with spot, point, directional lights):
+         lights3d 3-D at 200x150, primary and first bounce;
+  4. frames on the card against the C reference's golden PNGs: balls 4-D
+     f0 640x480 (RMSE < 1e-3, rows 180:260 against the CPU twins);
+     anim6d 160x120 f0-f3 (rows 30:90, RMSE < 1e-3); lights3d 200x150
+     colour and depth (RMSE < 1e-3) -- the spot light's path, whose
+     launches are counted;
+  5. the main paths, timed (warmed, median of 3, host clock around
+     torch.cuda.synchronize()), each driven with the launch counters set
+     to 0 just before its first timed frame and read just after: balls
+     1920x1080 (trace_closest, shade_carry) and anim6d 640x480 frame 1
+     (trace_gated, shade_escalate, shade_local, shade_point): s/frame,
+     rays/frame, Mrays/s, the probe's taint share, the tainted lanes and
+     the stack iterations.
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  JAX is never imported.
+
+bound_ms is the larger of two times: the bytes each call must move (each
+input read once, each output written once) over 3.35 TB/s, and the f32
+operations it does on these inputs over 67 TFLOP/s (the H100 SXM's
+published peaks at 700 W).  Operations are counted from the kernel
+sources per candidate solve (an FMA counts 2), over the candidates this
+run's cull lists hold, and for a directional shadow only up to the first
+hit, where the kernel stops.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -34,7 +55,7 @@ import zlib
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "tests", "goldens", "balls_4d_640x480_f0.png")
+GOLDENS = os.path.join(ROOT, "tests", "goldens")
 
 # kernel-vs-twin bars (the f32 trace and frame bars of tests/test_render.py)
 HIT_AGREE = 0.999        # fraction of live lanes with equal hit / miss
@@ -44,6 +65,24 @@ NXT_AGREE = 0.999
 CARRY_TOL = 1e-5         # o' v' w' frac' where both say nxt
 GOLDEN_RMSE = 1e-3
 PIXEL_TOL, PIXEL_FRAC = 1e-3, 0.002   # card vs CPU rows
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12   # H100 SXM, published
+
+KERNELS = {   # name -> (source, the TPU kernel it replaces)
+    "trace_closest": ("ndt_tpu_torch/csrc/trace_closest.cu",
+                      "ndt_tpu/render/pallas_trace.py:1730"),
+    "trace_gated": ("ndt_tpu_torch/csrc/trace_closest.cu",
+                    "ndt_tpu/render/pallas_trace.py:157"),
+    "shade_carry": ("ndt_tpu_torch/csrc/shade.cu",
+                    "ndt_tpu/render/pallas_trace.py:1128"),
+    "shade_local": ("ndt_tpu_torch/csrc/shade.cu",
+                    "ndt_tpu/render/pallas_trace.py:1075"),
+    "shade_point": ("ndt_tpu_torch/csrc/shade.cu",
+                    "ndt_tpu/render/pallas_trace.py:1014"),
+    "shade_spot": ("ndt_tpu_torch/csrc/shade.cu",
+                   "ndt_tpu/render/pallas_trace.py:1044"),
+    "shade_escalate": ("ndt_tpu_torch/csrc/shade.cu",
+                       "ndt_tpu/render/pallas_trace.py:1112"),
+}
 
 
 def read_png_rgb(path):
@@ -101,6 +140,14 @@ def read_png_rgb(path):
     return out.reshape(h, w, bpp)[..., :3].astype(np.uint8)
 
 
+def golden(name):
+    return read_png_rgb(os.path.join(GOLDENS, name)).astype(np.float64) / 255
+
+
+def rmse(a, b):
+    return float(np.sqrt(((a - b) ** 2).mean()))
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -109,16 +156,22 @@ def card_line():
     return out[0].strip()
 
 
-def balls_scene():
+def scene(name, dim, frame=0, frames=1):
+    """The port's host Scene of a registered scene, aimed."""
     from ndt_tpu_torch.scene import Scene
     from ndt_tpu_torch.scenes import get_scene
 
-    mod = get_scene("balls")
-    scn = Scene("balls", 4)
-    mod.scene_setup(scn, 4, 0, 1500)
-    mod.scene_cleanup()
+    mod = get_scene(name)
+    scn = Scene(name, dim)
+    mod.scene_setup(scn, dim, frame, frames)
+    if hasattr(mod, "scene_cleanup"):
+        mod.scene_cleanup()
     scn.cam.aim()
     return scn
+
+
+def balls_scene():
+    return scene("balls", 4, 0, 1500)
 
 
 def device_setup(scn, W, H, device):
@@ -135,6 +188,27 @@ def device_setup(scn, W, H, device):
     cam = dataclasses.replace(
         cam, dir_x=cam.dir_x * float(np.float32(W / H)))
     return sd, cam
+
+
+def primary_rays(scn, W, H, limit=None):
+    """(DeviceScene, o, v, live) on the card: the primary rays of a W x H
+    frame in screen-blocked order (the first ``limit`` of them), padded
+    to whole 4096-ray tiles."""
+    import torch
+
+    from ndt_tpu_torch.render.engine import (_blocked_perm, _pixel_grid,
+                                             gen_rays)
+    from ndt_tpu_torch.render.trace import _pad_rays
+
+    sd, cam = device_setup(scn, W, H, "cuda")
+    xx, yy = _pixel_grid(W, H, np.float32)
+    perm, _ = _blocked_perm(W, H)
+    x = torch.as_tensor(xx.ravel()[perm][:limit], device="cuda")
+    y = torch.as_tensor(yy.ravel()[perm][:limit], device="cuda")
+    o, v = gen_rays(cam, x, y)
+    o, v, R = _pad_rays(o, v, 4096)
+    live = torch.arange(o.shape[0], device="cuda") < R
+    return sd, o.contiguous(), v.contiguous(), live
 
 
 def cuda_ms(fn, reps, prefill=False):
@@ -161,6 +235,124 @@ def cuda_ms(fn, reps, prefill=False):
     return start.elapsed_time(stop) / reps
 
 
+# --------------------------------------------------------------------------
+# the least time the card could take (bound_ms)
+
+
+def solve_ops(sd):
+    """f32 operations of one candidate solve per family, counted from
+    csrc/families.cuh (an FMA counts 2), and of a winner's normal."""
+    D, A, B = sd.dim, sd.a_quad, sd.b_gate
+    NP = D * (D - 1) // 2
+    dots = 2 * D - 1                        # dotc over D
+    sph = D + dots + 2 * D + 3 * NP + (2 * NP - 1) + 2 + dots + 3
+    pln = D + 2 * dots + 1 + 3 * D + dots
+    quad = (D + 2 * A * dots + 2 * D * 2 * A + 2 * dots + 1 + 2 * A + 2 * D
+            + D * 2 * A + 2 * D + 3 * NP + (2 * NP - 1) + 3 + 1 + 6 + 2
+            + 6 * A + 5 + B * (4 * D + 4))
+    return {"sph": sph, "pln": pln, "quad": quad, "normal": 2 * D + 1}
+
+
+def walk_ops(sd, lists, counts):
+    """Operations of a full walk of every tile's list, summed over all the
+    tile's RT rays (the kernel runs every lane of a listed tile)."""
+    from ndt_tpu_torch.render.kernels import RT
+
+    ops = solve_ops(sd)
+    c = counts.double()
+    return float(RT * (c[:, 0] * ops["sph"] + c[:, 1] * ops["pln"]
+                       + c[:, 2] * ops["quad"]).sum())
+
+
+def anyhit_ops(sd, lists, counts, so, sv):
+    """Operations of the directional shadow walks, each ray's up to its
+    first hit (the kernel's any-hit stop): per ray the cumulative solve
+    cost at the first hitting candidate, or the whole list."""
+    import torch
+
+    from ndt_tpu_torch.constants import BIG
+    from ndt_tpu_torch.render import kernels as K
+
+    ops = solve_ops(sd)
+    total = 0.0
+    R = lists.shape[0] * K.RT
+    for r0, r1, tiles in K._ray_chunks(R):
+        nt = len(tiles)
+        oc = [x if x.dim() == 0 else x[r0:r1].reshape(nt, K.RT, 1)
+              for x in so]
+        vc = [x if x.dim() == 0 else x[r0:r1].reshape(nt, K.RT, 1)
+              for x in sv]
+        costs, hits = [], []
+        for fam, col, off, _ in K._families(sd):
+            rows, valid = K._tile_candidates(sd, lists, counts,
+                                             tiles.to(lists.device), col,
+                                             off)
+            if rows is None:
+                continue
+            t, _ = K._eval(sd, fam, rows, oc, vc, False)
+            costs.append((valid * ops[fam]).expand(t.shape).double())
+            hits.append(valid & (t < BIG * 0.5))
+        if not costs:
+            continue
+        cum = torch.cat(costs, -1).cumsum(-1)
+        hit = torch.cat(hits, -1)
+        first = torch.where(hit.any(-1), hit.double().argmax(-1),
+                            cum.shape[-1] - 1)
+        total += float(cum.gather(-1, first[..., None]).sum())
+    return total
+
+
+def shade_ops(sd, kinds, culls, o, v, t, lvec, mode):
+    """Operations of one shade launch: per-light shadow walks (full for
+    'p' / 's' after the first-rank pass, to the first hit for 'd') plus
+    the per-ray shading, specular and, with carry, the bounce step."""
+    from ndt_tpu_torch.constants import EPSILON
+    from ndt_tpu_torch.render.kernels import fma, light_fields
+
+    R, D = o.shape
+    ops = solve_ops(sd)
+    per_ray = 2 * (2 * D - 1) + 4
+    walks = 0.0
+    for li, (kind, _, _, geo) in enumerate(light_fields(kinds, D)[0]):
+        lists, counts = culls[li]
+        per_ray += 6 * D + 20 + 8 * D + 20          # shading + specular
+        if kind == "d":
+            u = lvec[geo:geo + D]
+            p = [fma(t, v[:, d], o[:, d]) for d in range(D)]
+            so = [fma(-u[d], EPSILON, p[d]) for d in range(D)]
+            sv = [0.0 - u[d] for d in range(D)]
+            walks += anyhit_ops(sd, lists, counts, so, sv)
+            per_ray += 2 * D
+        else:
+            walks += walk_ops(sd, lists, counts)
+            per_ray += 9 * D + len(sd.inf_gids) * max(ops.values())
+            if kind == "s":
+                per_ray += 2 * D
+    if mode != "local":
+        per_ray += 5 * D + 25
+    return walks + R * per_ray
+
+
+def call_bytes(*tensors):
+    return float(sum(x.numel() * x.element_size() for x in tensors))
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by)."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def table_bytes(sd):
+    return call_bytes(sd.sph, sd.pln, sd.qbase, sd.qaxes, sd.qlo, sd.qhi,
+                      sd.qoff, sd.qslab, sd.qgi, sd.qgt, sd.qgp, sd.mat,
+                      sd.rank, sd.inf, sd.props)
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernels against their twins
+
+
 def compare_trace(a, b, live):
     t_a, m_a, n_a, p_a = a
     t_b, m_b, n_b, p_b = b
@@ -179,8 +371,8 @@ def compare_trace(a, b, live):
 
 
 def compare_shade(a, b, live):
-    o_a, v_a, w_a, f_a, c_a, nx_a = a
-    o_b, v_b, w_b, f_b, c_b, nx_b = b
+    o_a, v_a, w_a, f_a, c_a, nx_a = a[:6]
+    o_b, v_b, w_b, f_b, c_b, nx_b = b[:6]
     n_live = live.sum().item()
     cd = (c_a - c_b).abs().amax(1)[live]
     bad = (cd > COLOR_TOL).sum().item() / n_live if n_live else 0.0
@@ -190,140 +382,294 @@ def compare_shade(a, b, live):
     carry = max(float((x - y).abs()[both].max()) if both.any() else 0.0
                 for x, y in ((o_a, o_b), (v_a, v_b), (w_a, w_b),
                              (f_a[:, None], f_b[:, None])))
+    taint = 1.0
+    if len(a) > 6:                                     # escalate
+        taint = ((a[6] == b[6]) & live).sum().item() / max(n_live, 1)
     max_err = cd.max().item() if cd.numel() else 0.0
-    ok = bad < COLOR_FRAC and nxt_agree >= NXT_AGREE and carry <= CARRY_TOL
+    ok = (bad < COLOR_FRAC and nxt_agree >= NXT_AGREE and carry <= CARRY_TOL
+          and taint >= NXT_AGREE)
     return ok, max_err, (f"color max |diff| {max_err:.3e}, lanes > "
                          f"{COLOR_TOL}: {bad:.6f}, nxt agreement "
-                         f"{nxt_agree:.6f}, carry max |diff| {carry:.3e}")
+                         f"{nxt_agree:.6f}, carry max |diff| {carry:.3e}, "
+                         f"taint agreement {taint:.6f}")
 
 
-def phase_kernels(torch, K, results):
-    """Phase 3: each kernel against its twin at the main path's shapes."""
-    from ndt_tpu_torch.render.engine import (_TILE, _blocked_perm,
-                                             _pixel_grid, gen_rays)
+def compare_local(a, b, hit):
+    cd = (a - b).abs().amax(1)[hit]
+    bad = (cd > COLOR_TOL).float().mean().item() if cd.numel() else 0.0
+    max_err = cd.max().item() if cd.numel() else 0.0
+    return bad < COLOR_FRAC, max_err, (f"local color max |diff| "
+                                       f"{max_err:.3e}, lanes > {COLOR_TOL}:"
+                                       f" {bad:.6f}")
+
+
+def check_path(torch, K, sd, o, v, live, variants, results, label):
+    """Each variant against its twin on the primary rays and their first
+    bounce; on the primary rays also its time, the twin's and the bound.
+    variants: kernel name -> shade mode (None for the trace)."""
     from ndt_tpu_torch.render.trace import _shadow_culls, fused_light_info
 
-    W, H = 1920, 1080
-    sd, cam = device_setup(balls_scene(), W, H, "cuda")
-    xx, yy = _pixel_grid(W, H, np.float32)
-    perm, _ = _blocked_perm(W, H)
-    x = torch.as_tensor(xx.ravel()[perm][:_TILE], device="cuda")
-    y = torch.as_tensor(yy.ravel()[perm][:_TILE], device="cuda")
-    o, v = gen_rays(cam, x, y)
-    R = o.shape[0]
+    R, D = o.shape
     kinds, lvec = fused_light_info(sd)
     aux = torch.full((R,), -1, dtype=torch.int32, device="cuda")
-    live = torch.ones(R, dtype=torch.bool, device="cuda")
-    w = torch.ones((R, 3), device="cuda")
-    frac = torch.ones(R, device="cuda")
-    color = torch.zeros((R, 3), device="cuda")
+    rng = np.random.default_rng(5)
+    w, frac, color = (torch.as_tensor(x.astype(np.float32), device="cuda")
+                      for x in (rng.uniform(0.2, 1, (R, 3)),
+                                rng.uniform(0.001, 1, R),
+                                rng.uniform(0, 0.5, (R, 3))))
     ok_all = True
     for stage in ("primary", "first bounce"):
         lists, counts = K.cull_lists(sd, o, v, live=live)
         tr_args = (sd, o, v, aux, lists, counts)
         got = K.trace_closest(*tr_args)
         ref = K.trace_closest_ref(*tr_args)
+        tname = "trace_gated" if K.is_gated(sd) else "trace_closest"
         ok, err, msg = compare_trace(got, ref, live)
-        print(f"[kernels] trace_closest {stage} R={R} live="
+        print(f"[kernels] {label} {tname} {stage} R={R} live="
               f"{live.sum().item()}: {msg} -> {'PASS' if ok else 'FAIL'}")
         ok_all &= ok
         t, mat, nrm, props = got
         culls = _shadow_culls(sd, kinds, lvec, o, v, t, live)
-        sh_args = (sd, o, v, t, mat, nrm, props, lvec, culls, kinds, True,
-                   w, frac, color, live)
-        sgot = K.shade_carry(*sh_args)
-        sref = K.shade_carry_ref(*sh_args)
-        sok, serr, smsg = compare_shade(sgot, sref, live)
-        print(f"[kernels] shade_carry {stage}: {smsg} -> "
-              f"{'PASS' if sok else 'FAIL'}")
-        ok_all &= sok
+        base = (sd, o, v, t, mat, nrm, props, lvec, culls, kinds, True)
+        hit = live & (t < 5e29)
+        runs = {}
+        for name, mode in variants.items():
+            if mode is None:
+                continue
+            if mode == "local":
+                args = base
+                kern, twin = K.shade_local, K.shade_local_ref
+                sok, serr, smsg = compare_local(kern(*args), twin(*args),
+                                                hit)
+            else:
+                args = base + (w, frac, color, live)
+                esc = mode == "escalate"
+                kern = (lambda *a, esc=esc: K.shade_carry(*a, escalate=esc))
+                twin = (lambda *a, esc=esc: K.shade_carry_ref(*a,
+                                                              escalate=esc))
+                sok, serr, smsg = compare_shade(kern(*args), twin(*args),
+                                                live)
+            print(f"[kernels] {label} {name} ({mode}, lights {kinds}) "
+                  f"{stage}: {smsg} -> {'PASS' if sok else 'FAIL'}")
+            ok_all &= sok
+            runs[name] = (kern, twin, args, serr, mode)
         if stage == "primary":
-            results["trace_closest"]["max_abs_err"] = err
-            results["shade_carry"]["max_abs_err"] = serr
-            for name, kern, twin, args in (
-                    ("trace_closest", K.trace_closest, K.trace_closest_ref,
-                     tr_args),
-                    ("shade_carry", K.shade_carry, K.shade_carry_ref,
-                     sh_args)):
+            if tname in variants:
+                runs[tname] = (K.trace_closest, K.trace_closest_ref, tr_args,
+                               err, None)
+            for name, (kern, twin, args, err_, mode) in runs.items():
                 r = results[name]
+                r["max_abs_err"] = err_
                 r["ms"] = cuda_ms(lambda: kern(*args), 20, prefill=True)
                 r["plain_ms"] = cuda_ms(lambda: twin(*args), 5)
-                on_stream = cuda_ms(lambda: kern(*args), 20)
-                print(f"[kernels] {name} at {R} primary rays: kernel "
+                r["library_ms"] = None   # no one PyTorch call computes it
+                if mode is None:
+                    nbytes = (call_bytes(o, v, aux, lists, counts)
+                              + table_bytes(sd) + call_bytes(*got))
+                    ops = (walk_ops(sd, lists, counts)
+                           + float(hit.sum()) * (solve_ops(sd)["sph"]
+                                                 + solve_ops(sd)["normal"]))
+                else:
+                    # local: colour [R, 3]; carry: o' v' w' frac' colour'
+                    # nxt (and taint)
+                    outs = (R * 12 if mode == "local" else
+                            2 * R * D * 4 + R * 29
+                            + (R if mode == "escalate" else 0))
+                    nbytes = (call_bytes(o, v, t, mat, nrm, props, lvec)
+                              + sum(call_bytes(*c) for c in culls)
+                              + table_bytes(sd) + outs
+                              + (0 if mode == "local" else
+                                 call_bytes(w, frac, color, live)))
+                    ops = shade_ops(sd, kinds, culls, o, v, t, lvec, mode)
+                r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+                print(f"[kernels] {label} {name} at {R} primary rays: kernel "
                       f"{r['ms']:.4f} ms device time (mean of 20, queue "
-                      f"pre-filled), {on_stream:.4f} ms per call on the "
-                      f"stream; twin {r['plain_ms']:.3f} ms per call "
-                      "(CUDA events, mean of 5)")
-            o, v, w, frac, color, live = sgot
-            o, v = o.contiguous(), v.contiguous()
+                      f"pre-filled), twin {r['plain_ms']:.3f} ms (mean of "
+                      f"5), bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                      f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
+            o2, v2, _, _, _, nxt = K.shade_carry_ref(
+                *(base + (w, frac, color, live)))
+            o, v, live = o2.contiguous(), v2.contiguous(), nxt
     return ok_all
 
 
-def phase_golden(torch, K, card):
-    """Phase 4: 640x480 on the card vs the C golden and vs the CPU twins."""
-    from ndt_tpu_torch.image import linear_to_bytes
+def phase_kernels(torch, K, results):
+    """Phase 3: every kernel variant against its twin at its path's
+    shapes."""
+    ok = check_path(torch, K, *primary_rays(balls_scene(), 1920, 1080,
+                                            1 << 20),
+                    {"trace_closest": None, "shade_carry": "carry"},
+                    results, "balls 1080p")
+    ok &= check_path(torch, K, *primary_rays(scene("anim6d", 6, 1, 4), 640,
+                                             480),
+                     {"trace_gated": None, "shade_escalate": "escalate",
+                      "shade_local": "local", "shade_point": "carry"},
+                     results, "anim6d 640x480")
+    ok &= check_path(torch, K, *primary_rays(scene("lights3d", 3), 200, 150),
+                     {"shade_spot": "carry"}, results, "lights3d 200x150")
+    return ok
+
+
+# --------------------------------------------------------------------------
+# phase 4: frames against the C goldens
+
+
+def phase_golden(torch, K, card, results):
+    """Phase 4: balls 640x480, anim6d 160x120 f0-f3 and lights3d 200x150
+    (colour and depth) on the card against the C goldens."""
+    from ndt_tpu_torch.image import linear_to_bytes, normalize_depth
     from ndt_tpu_torch.render.engine import (RenderOptions, _pixel_grid,
                                              render_frame, render_tile)
 
     W, H = 640, 480
     opts = RenderOptions(width=W, height=H)
-    K.reset_launch_counts()
-    img, _, rays = render_frame(balls_scene(), opts, device="cuda")
+    img, _, rays = render_frame(balls_scene(), opts)
     torch.cuda.synchronize()
-    counts = dict(K.launch_counts)
     ok = img.shape == (H, W, 3) and bool(np.isfinite(img).all())
-    ref = read_png_rgb(GOLDEN).astype(np.float64) / 255.0
-    mine = linear_to_bytes(img).astype(np.float64) / 255.0
-    rmse = float(np.sqrt(((mine - ref) ** 2).mean()))
-    ok &= rmse < GOLDEN_RMSE and all(n > 0 for n in counts.values())
-    print(f"[golden] balls 4-D f0 {W}x{H} on {card}: RMSE {rmse:.3e} vs C "
-          f"golden (bar {GOLDEN_RMSE}), rays {rays}, launches {counts}")
-
+    err = rmse(linear_to_bytes(img) / 255.0, golden("balls_4d_640x480_f0.png"))
+    ok &= err < GOLDEN_RMSE
+    print(f"[golden] balls 4-D f0 {W}x{H} on {card}: RMSE {err:.3e} vs C "
+          f"golden (bar {GOLDEN_RMSE}), rays {rays}")
     rows = slice(180, 260)
     sd, cam = device_setup(balls_scene(), W, H, "cpu")
     xx, yy = _pixel_grid(W, H, np.float32)
     c, _, _ = render_tile(sd, cam, torch.as_tensor(xx[rows].ravel()),
                           torch.as_tensor(yy[rows].ravel()), opts)
-    cpu = c.numpy().reshape(-1, W, 3)
-    d = np.abs(img[rows] - cpu).max(-1)
+    d = np.abs(img[rows] - c.numpy().reshape(-1, W, 3)).max(-1)
     off = float((d > PIXEL_TOL).mean())
-    band_ok = off < PIXEL_FRAC
+    ok &= off < PIXEL_FRAC
     print(f"[golden] rows 180:260 card vs CPU twins: max |diff| "
           f"{d.max():.3e}, pixels > {PIXEL_TOL}: {off:.6f} (bar "
-          f"{PIXEL_FRAC}) -> {'PASS' if band_ok else 'FAIL'}")
-    return ok and band_ok
+          f"{PIXEL_FRAC}) -> {'PASS' if off < PIXEL_FRAC else 'FAIL'}")
 
+    W, H, rows = 160, 120, slice(30, 90)
+    for frame in range(4):
+        img, _, rays = render_frame(scene("anim6d", 6, frame, 4),
+                                    RenderOptions(width=W, height=H))
+        mine = linear_to_bytes(img) / 255.0
+        ref = golden(f"anim6d_6d_160x120_f{frame}.png")
+        band = rmse(mine[rows], ref[rows])
+        fok = bool(np.isfinite(img).all()) and band < GOLDEN_RMSE
+        ok &= fok
+        print(f"[golden] anim6d 6-D f{frame} {W}x{H}: rows 30:90 RMSE "
+              f"{band:.3e} (bar {GOLDEN_RMSE}), full frame "
+              f"{rmse(mine, ref):.3e}"
+              f", rays {rays} -> {'PASS' if fok else 'FAIL'}")
 
-def phase_frame(torch, K, card, results):
-    """Phase 5: the 1080p main path, timed."""
-    from ndt_tpu_torch.render.engine import RenderOptions, render_frame
-
-    W, H = 1920, 1080
-    opts = RenderOptions(width=W, height=H)
-    scn = balls_scene()
-    render_frame(scn, opts, device="cuda")              # warm-up
-    torch.cuda.synchronize()
+    W, H = 200, 150
     K.reset_launch_counts()
-    t0 = time.perf_counter()
-    img, _, rays = render_frame(scn, opts, device="cuda")
+    img, depth, rays = render_frame(scene("lights3d", 3),
+                                    RenderOptions(width=W, height=H,
+                                                  record_depth=True))
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(K.launch_counts)
-    for name, n in launches.items():
-        results[name]["launches"] = n
-    times = [dt]
-    for _ in range(2):
-        t0 = time.perf_counter()
-        render_frame(scn, opts, device="cuda")
-        torch.cuda.synchronize()
+    counts = dict(K.launch_counts)
+    results["shade_spot"]["launches"] = counts["shade_spot"]
+    col = rmse(linear_to_bytes(img) / 255.0,
+               golden("lights3d_3d_200x150_f0.png"))
+    dm = linear_to_bytes(np.repeat(normalize_depth(depth)[..., None], 3,
+                                   axis=-1)) / 255.0
+    dep = rmse(dm, golden("lights3d_3d_200x150_f0_depth.png"))
+    lok = col < GOLDEN_RMSE and dep < GOLDEN_RMSE and counts["shade_spot"] > 0
+    ok &= lok
+    print(f"[golden] lights3d 3-D {W}x{H}: colour RMSE {col:.3e}, depth RMSE "
+          f"{dep:.3e} (bar {GOLDEN_RMSE}), rays {rays}, launches "
+          f"{ {k: n for k, n in counts.items() if n} } -> "
+          f"{'PASS' if lok else 'FAIL'}")
+    return ok
+
+
+# --------------------------------------------------------------------------
+# phase 5: the main paths, timed
+
+
+@contextlib.contextmanager
+def engine_counters(engine):
+    """Count what the engine's loops do while the block runs, by wrapping
+    its functions: the probe's taint shares, chain and stack iterations,
+    lanes entering the stack loop."""
+    names = ("_probe_taint_frac", "_chain_body", "_stack_body", "_run_stack")
+    orig = {n: getattr(engine, n) for n in names}
+    c = {"probe_taint": [], "chain_iters": 0, "stack_iters": 0,
+         "stack_lanes": 0}
+
+    def probe(*a):
+        out = orig["_probe_taint_frac"](*a)
+        c["probe_taint"].append(out[0])
+        return out
+
+    def chain(*a, **k):
+        c["chain_iters"] += 1
+        return orig["_chain_body"](*a, **k)
+
+    def stack(*a):
+        c["stack_iters"] += 1
+        return orig["_stack_body"](*a)
+
+    def run_stack(scn, light_info, o, v, opts):
+        c["stack_lanes"] += o.shape[0]
+        return orig["_run_stack"](scn, light_info, o, v, opts)
+
+    for n, f in zip(names, (probe, chain, stack, run_stack)):
+        setattr(engine, n, f)
+    try:
+        yield c
+    finally:
+        for n, f in orig.items():
+            setattr(engine, n, f)
+
+
+def timed_frames(torch, K, scn, opts, names, results, label, card):
+    """Warm-up, then three frames; the counters are set to 0 right before
+    the first timed frame and read right after it."""
+    from ndt_tpu_torch.render import engine
+
+    engine.render_frame(scn, opts)                    # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for i in range(3):
+        if i == 0:
+            K.reset_launch_counts()
+            with engine_counters(engine) as counts:
+                t0 = time.perf_counter()
+                img, _, rays = engine.render_frame(scn, opts)
+                torch.cuda.synchronize()
+            launches = {k: K.launch_counts[k] for k in names}
+        else:
+            t0 = time.perf_counter()
+            img, _, rays = engine.render_frame(scn, opts)
+            torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    for k in names:
+        results[k]["launches"] = launches[k]
     s = float(np.median(times))
-    ok = (img.shape == (H, W, 3) and bool(np.isfinite(img).all())
-          and all(r["launches"] > 0 for r in results.values()))
-    print(f"[frame] balls 4-D f0 {W}x{H} on {card}: {s:.4f} s/frame "
-          f"(median of {len(times)}: {', '.join(f'{x:.4f}' for x in times)}),"
-          f" {rays} rays/frame, {rays / s / 1e6:.1f} Mrays/s; launches "
-          f"{launches} in the first timed frame")
+    ok = (img.shape == (opts.height, opts.width, 3)
+          and bool(np.isfinite(img).all())
+          and all(n > 0 for n in launches.values()))
+    extra = ""
+    if counts["probe_taint"]:
+        extra = (f"; probe taint share {counts['probe_taint']}, lanes "
+                 f"into the stack loop {counts['stack_lanes']} of "
+                 f"{opts.width * opts.height}, chain iterations "
+                 f"{counts['chain_iters']}, stack iterations "
+                 f"{counts['stack_iters']}")
+    print(f"[frame] {label} {opts.width}x{opts.height} on {card}: {s:.4f} "
+          f"s/frame (median of 3: {', '.join(f'{x:.4f}' for x in times)}), "
+          f"{rays} rays/frame, {rays / s / 1e6:.2f} Mrays/s; launches "
+          f"{launches} in the first timed frame{extra}")
+    return ok
+
+
+def phase_frames(torch, K, card, results):
+    from ndt_tpu_torch.render.engine import RenderOptions
+
+    ok = timed_frames(torch, K, balls_scene(),
+                      RenderOptions(width=1920, height=1080),
+                      ("trace_closest", "shade_carry"), results,
+                      "balls 4-D f0", card)
+    ok &= timed_frames(torch, K, scene("anim6d", 6, 1, 4),
+                       RenderOptions(width=640, height=480),
+                       ("trace_gated", "shade_escalate", "shade_local",
+                        "shade_point"), results, "anim6d 6-D f1", card)
     return ok
 
 
@@ -339,30 +685,33 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     card = card_line()
     print(card)
     print(f"[env] torch {torch.__version__} (CUDA {torch.version.cuda}), "
           f"device {torch.cuda.get_device_name(0)}, "
           f"{build.nvcc_version(build.find_nvcc())}")
-    t0 = time.perf_counter()
     build.load_library()
-    print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] kernels ready; phase 1-2 took "
+          f"{time.perf_counter() - t0:.1f} s")
 
-    results = {
-        "trace_closest": dict(
-            name="trace_closest", route="cuda",
-            source="ndt_tpu_torch/csrc/trace_closest.cu",
-            replaces="ndt_tpu/render/pallas_trace.py:1730"),
-        "shade_carry": dict(
-            name="shade_carry", route="cuda",
-            source="ndt_tpu_torch/csrc/shade_carry.cu",
-            replaces="ndt_tpu/render/pallas_trace.py:1128"),
-    }
-    ok = phase_kernels(torch, K, results)
-    ok &= phase_golden(torch, K, card)
-    ok &= phase_frame(torch, K, card, results)
-    if not ok:
-        print("chip_smoke: a phase failed", file=sys.stderr)
+    results = {name: dict(name=name, route="cuda", source=src, replaces=rep)
+               for name, (src, rep) in KERNELS.items()}
+    ok = True
+    for label, phase in (("kernels", lambda: phase_kernels(torch, K,
+                                                          results)),
+                         ("golden", lambda: phase_golden(torch, K, card,
+                                                         results)),
+                         ("frames", lambda: phase_frames(torch, K, card,
+                                                         results))):
+        t0 = time.perf_counter()
+        ok &= bool(phase())
+        print(f"[{label}] phase took {time.perf_counter() - t0:.1f} s")
+    missing = [r["name"] for r in results.values() if "launches" not in r
+               or "ms" not in r]
+    if missing or not ok:
+        print(f"chip_smoke: a phase failed (unmeasured: {missing})",
+              file=sys.stderr)
         return 1
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -6,19 +6,22 @@ each module here is held against; module names and call structure follow
 it, so ``ndt_tpu_torch.render.engine.render_frame`` is the counterpart of
 ``ndt_tpu.render.engine.render_frame``.
 
-This package imports torch and never jax or flax.  It reuses only the
-numpy-only host modules of ``ndt_tpu``: ``constants``, ``utils.drand48``,
-``utils.bounding`` / ``utils.nelder_mead`` and ``native``.
+This package imports torch and never jax, flax or any module of
+``ndt_tpu``: it keeps its own copies of the host helpers it needs.
 
 Layer map:
+  constants     - EPSILON, BIG and the other numeric conventions
+  utils         - drand48, Nelder-Mead, bounding spheres, C-exact kd cells
+  native        - the host C++ balls stepper and bounding-sphere fit
   image         - the linear <-> byte pixel model of the output images
   mathnd        - N-D vector math, numpy on the host and torch on the device
   camera        - camera aiming (host) and primary-ray targets (device)
   scene.model   - the Object / Light / Scene builder API
   scene.compile - Scene -> numpy SoA SceneData -> device tables
-  scenes        - the workload scenes (balls)
-  render        - cull lists, the two CUDA kernels with their plain twins,
-                  the fused bounce step and the frame engine
+  scenes        - the workload scenes (balls, anim6d, lights3d)
+  render        - cull lists, the CUDA kernels with their plain twins, the
+                  fused bounce step and the frame engine (chain and
+                  refraction-stack paths)
   kernels       - nvcc build of csrc/*.cu into a ctypes library
 """
 

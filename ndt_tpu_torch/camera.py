@@ -201,10 +201,12 @@ class Camera:
             self.leveling = curr
         return self.aim_naive()
 
-    def data(self, dtype=torch.float32, device="cpu"):
+    def data(self, dtype=torch.float32, device="cuda"):
         """Pack what the planar camera's center-eye rays read into tensors
-        on ``device`` (the eyes, VR/PANO angles and aperture come with
-        their ports)."""
+        on ``device``, the card unless the caller asks for the CPU (the
+        eyes, VR/PANO angles and aperture come with their ports)."""
+        device = render_device(device)
+
         def t(x):
             return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
                                    device=device)
@@ -213,6 +215,16 @@ class Camera:
             cam_type=int(self.type), pos=t(self.pos),
             img_orig=t(self.img_orig), dir_x=t(self.dir_x),
             dir_y=t(self.dir_y), focal_distance=t(self.focal_distance))
+
+
+def render_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises
+    (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"the CUDA device {device} was asked for and "
+                           "torch.cuda.is_available() is false")
+    return device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,9 +247,9 @@ def target_point(cam: CameraData, x, y, dist):
         raise NotImplementedError(
             "VR/PANO cameras are not ported yet (ROADMAP Queue 1: "
             "stereo/VR)")
-    pixel = (cam.img_orig + cam.dir_x * x[..., None]
-             + cam.dir_y * y[..., None])
+    # the adds fuse the products, as XLA computes the JAX reference's f32
+    pixel = mathnd.fma(cam.dir_y, y[..., None],
+                       mathnd.fma(cam.dir_x, x[..., None], cam.img_orig))
     screen_dist = mathnd.dist(cam.img_orig, cam.pos)
-    temp = pixel - cam.pos
-    scaled = cam.pos + temp * (dist / screen_dist)
+    scaled = mathnd.fma(pixel - cam.pos, dist / screen_dist, cam.pos)
     return torch.where(screen_dist > EPSILON, scaled, pixel)

@@ -3,7 +3,10 @@
 //
 // Replaces: ndt_tpu/render/pallas_trace.py pallas_trace(mode="closest")
 // (L1730), kernel body _make_kernel (L565) with the sphere, plane and
-// quadric families, no kd gates, no chunk seeding, no early exit.
+// quadric families (_quadric_eval L157: cylinders, orthotope slabs with
+// their closest-approach fallback and kd leaf-cell gates); no chunk
+// seeding, no early exit.  Instances: D = 3..8 with one quadric axis, and
+// D = 4..6 with two (the orthotope 2-flats of the 6-D anim6d scene).
 //
 // Semantics kept exactly: candidates run in global-id order (spheres, then
 // planes, then quadrics, each list ascending), a strict '<' keeps the
@@ -13,8 +16,9 @@
 // the winner is always on the list.
 //
 // What bounds it on an H100: arithmetic.  A ray costs ~50-120 f32 flops
-// per candidate (D = 4), over tens of candidates per ray, against ~90
-// bytes of ray input and output.  The scene tables are a few KB.
+// per candidate (D = 4; ~250 for a gated 6-D slab), over the candidates of
+// its tile, against ~90-130 bytes of ray input and output.  The scene
+// tables are a few KB.
 // Design: one thread per ray, its components in registers (templated on
 // D, loops unrolled).  A 128-ray block lies inside one 4096-ray cull tile,
 // so every thread of a warp walks the same list: no divergence in the loop
@@ -100,12 +104,12 @@ trace_closest_kernel(NdtTables tb, const float* __restrict__ o,
         m1 >= 0 ? __ldg(props + m1 * N_PROPS + j) : 0.f;
 }
 
-template <int D>
+template <int D, int A>
 cudaError_t launch(const NdtTables& tb, const float* o, const float* v,
                    const int* aux, const int* lists, const int* counts,
                    int n_list, const float* props, float* t_out, int* m_out,
                    float* n_out, float* p_out, int R, cudaStream_t stream) {
-  trace_closest_kernel<D, 1><<<R / THREADS, THREADS, 0, stream>>>(
+  trace_closest_kernel<D, A><<<R / THREADS, THREADS, 0, stream>>>(
       tb, o, v, aux, lists, counts, n_list, props, t_out, m_out, n_out,
       p_out, R);
   return cudaGetLastError();
@@ -121,19 +125,22 @@ extern "C" int ndt_trace_closest(const NdtTables* tb, const float* o,
                                  int n_list, const float* props, float* t_out,
                                  int* m_out, float* n_out, float* p_out, int R,
                                  void* stream) {
-  if (tb->a_quad != 1 || R % RT) return -1;
+  if (R % RT) return -1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NDT_CASE(DIM)                                                       \
-  case DIM:                                                                 \
-    return launch<DIM>(*tb, o, v, aux, lists, counts, n_list, props, t_out, \
-                       m_out, n_out, p_out, R, s);
-  switch (tb->dim) {
-    NDT_CASE(3)
-    NDT_CASE(4)
-    NDT_CASE(5)
-    NDT_CASE(6)
-    NDT_CASE(7)
-    NDT_CASE(8)
+#define NDT_CASE(DIM, A)                                                 \
+  case DIM * 16 + A:                                                     \
+    return launch<DIM, A>(*tb, o, v, aux, lists, counts, n_list, props, \
+                          t_out, m_out, n_out, p_out, R, s);
+  switch (tb->dim * 16 + tb->a_quad) {
+    NDT_CASE(3, 1)
+    NDT_CASE(4, 1)
+    NDT_CASE(5, 1)
+    NDT_CASE(6, 1)
+    NDT_CASE(7, 1)
+    NDT_CASE(8, 1)
+    NDT_CASE(4, 2)
+    NDT_CASE(5, 2)
+    NDT_CASE(6, 2)
     default:
       return -1;
   }

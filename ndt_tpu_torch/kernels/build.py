@@ -4,9 +4,10 @@ plain C interface, loaded with ctypes.
 The library is compiled at first use, from this checkout's sources only,
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` (Hopper) into
 ``ndt_tpu_torch/_build/`` under a name that hashes the sources and flags,
-so a stale library is never loaded.  The first build prints the nvcc
-version line and ptxas' per-kernel register / spill report.  A missing
-nvcc or a failed build raises.
+so a stale library is never loaded.  Each ``.cu`` compiles to an object in
+its own nvcc process, all started together, then one nvcc links them.  The
+first build prints the nvcc version line and ptxas' per-kernel register /
+spill report.  A missing nvcc or a failed build raises.
 """
 
 from __future__ import annotations
@@ -21,10 +22,10 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-# -fmad=false: keep a*b+c as two roundings, as the plain twins and the JAX
-# reference compute it (see csrc/families.cuh)
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# -fmad=false: nvcc contracts no a*b+c on its own; the sources write out
+# the fused multiply-adds the JAX reference computes (see csrc/families.cuh)
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
               "-Xcompiler", "-fPIC"]
 
 _lib = None
@@ -61,24 +62,44 @@ def build() -> str:
     for src in _sources():
         with open(src, "rb") as f:
             h.update(f.read())
-    out = os.path.join(_BUILD, f"libndt_kernels_{h.hexdigest()[:16]}.so")
+    tag = h.hexdigest()[:16]
+    out = os.path.join(_BUILD, f"libndt_kernels_{tag}.so")
     if os.path.exists(out):
         return out
     nvcc = find_nvcc()
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
     cus = [s for s in _sources() if s.endswith(".cu")]
+    pid = os.getpid()
+    objs = [os.path.join(_BUILD, f"{os.path.basename(s)}.{tag}.{pid}.o")
+            for s in cus]
     t0 = time.perf_counter()
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cus],
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(cus, objs)]
+    reports = []
+    failed = []
+    for src, proc in zip(cus, procs):
+        so, se = proc.communicate()
+        reports.append(so + se)
+        if proc.returncode:
+            failed.append(f"nvcc {os.path.basename(src)} failed "
+                          f"({proc.returncode}):\n{so}\n{se}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = f"{out}.{pid}.tmp"
+    res = subprocess.run([nvcc, *_ARCH, "-shared", "-o", tmp, *objs],
                          capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                            f"{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)
     print(f"[ndt_tpu_torch] {nvcc_version(nvcc)}")
-    print(f"[ndt_tpu_torch] built {os.path.basename(out)} in "
-          f"{time.perf_counter() - t0:.1f} s; ptxas:")
-    for line in (res.stdout + res.stderr).splitlines():
+    print(f"[ndt_tpu_torch] built {os.path.basename(out)} from {len(cus)} "
+          f"sources in parallel in {time.perf_counter() - t0:.1f} s; ptxas:")
+    for line in "".join(reports).splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
     return out
@@ -92,9 +113,9 @@ def load_library():
         lib.ndt_trace_closest.argtypes = (
             [_P] * 6 + [_I] + [_P] * 5 + [_I, _P])
         lib.ndt_trace_closest.restype = _I
-        lib.ndt_shade_carry.argtypes = (
-            [_P] * 8 + [ctypes.c_char_p, _I] + [_P] * 2 + [_I, _I, _I]
-            + [_P] * 10 + [_I, _P])
-        lib.ndt_shade_carry.restype = _I
+        lib.ndt_shade.argtypes = (
+            [_P] * 8 + [ctypes.c_char_p, _I] + [_P] * 2 + [_I] * 4
+            + [_P] * 12 + [_I, _P])
+        lib.ndt_shade.restype = _I
         _lib = lib
     return _lib

@@ -4,7 +4,7 @@ Counterpart of ``ndt_tpu/mathnd.py`` (the reference's vectNd library).
 Every function takes numpy arrays (host scene preparation, float64, the
 C's double math) or torch tensors (device), and dispatches on the input
 type.  The EPSILON guards and the rotate quirk follow the reference and are
-cited per function.  ``refract`` waits for the refraction-stack port.
+cited per function.
 """
 
 from __future__ import annotations
@@ -25,15 +25,61 @@ def _where(cond, a, b):
     return np.where(cond, a, b)
 
 
+def fma(a, b, c):
+    """a * b + c rounded once, for torch tensors and scalars (a Python
+    float taken as the constant XLA would make of it).  For f32 the product
+    of two f32 is exact in f64, so only the sum rounds before the cast (a
+    double rounding differs from the FMA's single one with probability
+    ~2^-29); f64 operands round twice.
+
+    The port's f32 arithmetic rounds as the JAX package's does on the CPU,
+    where its f32 frames are checked: XLA lets LLVM contract an add or
+    subtract whose operand is a product used nowhere else into one fused
+    multiply-add (the first operand when both are products).  Twins and
+    engine write those sites with this function; the CUDA kernels use
+    __fmaf_rn at the same sites (csrc/families.cuh)."""
+    ts = [x for x in (a, b, c) if isinstance(x, torch.Tensor)]
+    dt = (torch.float64 if any(x.dtype == torch.float64 for x in ts)
+          else torch.float32)
+
+    def up(x):
+        if isinstance(x, torch.Tensor):
+            return x.double()
+        return float(np.float32(x)) if dt == torch.float32 else float(x)
+
+    a, b, c = up(a), up(b), up(c)
+    if len(ts) == 3:
+        return torch.addcmul(c, a, b).to(dt)
+    return (a * b + c).to(dt)
+
+
+def sqrt(x):
+    """IEEE (correctly rounded) square root of a torch tensor, as numpy,
+    XLA and CUDA's sqrtf give it.  torch's vectorised f32 sqrt on the CPU
+    is not correctly rounded (it differs in ~0.7% of values); the f64 root
+    rounded to f32 is (53 >= 2 * 24 + 2 bits)."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def dot(a, b):
-    """Inner product over the trailing dimension axis (vectNd_dot)."""
-    return (a * b).sum(axis=-1)
+    """Inner product over the trailing dimension axis (vectNd_dot).  On
+    torch f32 tensors it rounds as XLA's CPU reduction does, which the JAX
+    package's f32 reference runs: the first product alone, then each
+    later product fused into the running sum."""
+    if not _is_torch(a, b) or torch.promote_types(a.dtype, b.dtype) \
+            != torch.float32:
+        return (a * b).sum(axis=-1)
+    a, b = torch.broadcast_tensors(a, b)
+    acc = a[..., 0] * b[..., 0]
+    for d in range(1, a.shape[-1]):
+        acc = fma(a[..., d], b[..., d], acc)
+    return acc
 
 
 def l2norm(v):
     """Euclidean length (vectNd.h:315 vectNd_l2norm)."""
     d = dot(v, v)
-    return torch.sqrt(d) if _is_torch(d) else np.sqrt(d)
+    return sqrt(d) if _is_torch(d) else np.sqrt(d)
 
 
 def dist(a, b):
@@ -75,7 +121,54 @@ def reflect(u, n, mag=1.0):
     ``u - (1+mag) * (n.u)/(n.n) * n``."""
     nu = dot(n, u)
     nn = dot(n, n)
-    return u - n * ((1.0 + mag) * nu / nn)[..., None]
+    s = ((1.0 + mag) * nu / nn)[..., None]
+    if _is_torch(u, n) and u.dtype == torch.float32:
+        return fma(-n, s, u)            # contracted, as XLA computes it
+    return u - n * s
+
+
+def refract(u, n, index):
+    """Snell-law refraction with the total-internal-reflection fallback
+    (vectNd.c:119-188); ``index`` scalar or batched ``[...]``.
+
+    As the reference: the incidence angle via vectNd_angle (acos of the
+    normalized dot), the refraction angle via asin(sin(theta_in)/index),
+    TIR maps theta_out = pi - theta_in, and the result is cos(theta_out)
+    * (+/- unit n) + sin(theta_out) * the unit component of u
+    perpendicular to n."""
+    if _is_torch(u, n):
+        sin, cos, asin = torch.sin, torch.cos, torch.asin
+
+        def clip(x):
+            return x.clamp(-1.0, 1.0)
+
+        index = torch.as_tensor(index, dtype=u.dtype, device=u.device)
+    else:
+        sin, cos, asin = np.sin, np.cos, np.arcsin
+
+        def clip(x):
+            return np.clip(x, -1.0, 1.0)
+
+        index = np.asarray(index)
+    un_dot = dot(-u, n)
+    inside = un_dot < 0            # the ray exits: invert the index
+    eff_index = _where(inside, 1.0 / index, index)    # vectNd.c:136-142
+    theta_in = _where(inside, angle(-u, -n), angle(-u, n))
+    sin_out = sin(theta_in) / eff_index
+    tir = sin_out > 1.0
+    theta_out = _where(tir, np.pi - theta_in, asin(clip(sin_out)))
+    un_hat = unitize(n)
+    # unit component of u perpendicular to the normal (vectNd.c:153-162)
+    nh = -un_hat
+    rn = cos(theta_out)[..., None]
+    rp = sin(theta_out)[..., None]
+    ref_n = _where(inside[..., None], un_hat * rn, -un_hat * rn)
+    if _is_torch(u, n) and u.dtype == torch.float32:
+        # contracted, as XLA computes it
+        np_vec = unitize(fma(-nh, dot(u, nh)[..., None], u))
+        return fma(np_vec, rp, ref_n)
+    np_vec = unitize(u - nh * dot(u, nh)[..., None])
+    return ref_n + np_vec * rp
 
 
 def orthogonalize(in1, in2):

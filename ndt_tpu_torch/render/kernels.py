@@ -1,19 +1,26 @@
-"""The per-tile cull and the two hand-written CUDA kernels of the bounce
-step, each beside its plain PyTorch twin.
+"""The per-tile cull and the hand-written CUDA kernels of the bounce step,
+each beside its plain PyTorch twin.
 
 Counterpart of ``ndt_tpu/render/pallas_trace.py``:
 
   cull_lists        <- cull_lists (L1490), the XLA interval pass: torch ops
   trace_closest     <- pallas_trace(mode="closest") (L1730, _make_kernel
-                       L565): csrc/trace_closest.cu, twin trace_closest_ref
+                       L565) with the sphere, plane and quadric families,
+                       quadric slabs and kd leaf-cell gates (_quadric_eval
+                       L157): csrc/trace_closest.cu, twin trace_closest_ref
   shade_carry       <- pallas_shade(carry=...) (L1128, _make_shade_kernel
-                       L886) for ambient + directional lights:
-                       csrc/shade_carry.cu, twin shade_carry_ref
+                       L886), optionally with escalate (L1112-1119):
+                       csrc/shade.cu, twin shade_carry_ref
+  shade_local       <- pallas_shade(carry=None) (L1075-1078): the local
+                       colour only, csrc/shade.cu, twin shade_local_ref
+
+Both shade entry points take ambient, directional ('d'), point ('p') and
+spot ('s') lights (L1001-1049); area lights raise.
 
 A wrapper takes its twin only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises.  The twins are vectorised over [rays,
 candidates] per family with the kernels' f32 formulas in the same order
-(the family solves of pallas_trace.py L108-217), so they double as the
+(the family solves of pallas_trace.py L108-255), so they double as the
 reference the kernels are checked against on the card.
 
 Rays are [R, D] float32 with R a multiple of RT: ray r belongs to cull tile
@@ -26,19 +33,32 @@ import ctypes
 
 import torch
 
-from ndt_tpu_torch.constants import BIG, EPSILON, MIN_PIXEL_FRAC, SPECULAR_POWER
+from ndt_tpu_torch.constants import (BIG, EPSILON, EPSILON2, MIN_PIXEL_FRAC,
+                                     SPECULAR_POWER)
+from ndt_tpu_torch.mathnd import fma, sqrt
 from ndt_tpu_torch.scene.compile import N_PROPS, DeviceScene
 
 # rays per cull tile (the JAX kernel's rays per grid program); the CUDA
 # kernels hold the same constant (csrc/families.cuh RT)
 RT = 4096
 N_FAMS = 5     # cull-count columns: sph, pln, quad, fct, hf
+# shadow rank of every finite leaf is NOT_INFINITE = 1 << 30; a rank at or
+# above this cut is never truncated (pallas_trace NOTINF)
+NOTINF = (1 << 30) - 1
 # rays per twin evaluation chunk (a multiple of RT): bounds the
 # [rays, candidates] temporaries of a full 1080p tile
 _REF_CHUNK = 16 * RT
+LIGHT_KINDS = "dps"   # directional, point, spot
 
-# launches of each kernel, counted where the wrapper launches it
-launch_counts = {"trace_closest": 0, "shade_carry": 0}
+# Launches per kernel variant, counted where a wrapper launches a kernel.
+# A trace launch counts once: "trace_gated" for a scene with orthotope
+# slabs, several quadric axes or kd gates, else "trace_closest".  A shade
+# launch counts once under its mode ("shade_carry", "shade_escalate",
+# "shade_local") and once more under "shade_point" / "shade_spot" when its
+# lights include a point / spot light.
+launch_counts = {k: 0 for k in (
+    "trace_closest", "trace_gated", "shade_carry", "shade_escalate",
+    "shade_local", "shade_point", "shade_spot")}
 
 
 def reset_launch_counts():
@@ -57,6 +77,19 @@ def _families(scn: DeviceScene):
             out.append((name, col, off, n))
         off += n
     return out
+
+
+def _gid_family(scn: DeviceScene, gid):
+    """Global id -> (family name, local row) (pallas_trace._gid_fam)."""
+    for name, _, off, n in _families(scn):
+        if gid < off + n:
+            return name, gid - off
+    raise ValueError(f"gid out of range: {gid}")
+
+
+def is_gated(scn: DeviceScene) -> bool:
+    """Does the scene need the quadric slab / multi-axis / gate code?"""
+    return scn.a_quad > 1 or scn.b_gate > 0
 
 
 # --------------------------------------------------------------------------
@@ -115,7 +148,7 @@ def cull_lists(scn: DeviceScene, o, v, live=None, limit=None):
             m2 = torch.where((mlo <= 0.0) & (mhi >= 0.0), 0.0,
                              torch.minimum(mlo * mlo, mhi * mhi))
             perp2_lo = perp2_lo + m2
-    r = torch.sqrt(torch.clamp_min(r2, 0.0))[None, :]
+    r = sqrt(torch.clamp_min(r2, 0.0))[None, :]
     may_hit = (perp2_lo <= r2[None, :]) & ((-voc_lo + r) >= EPSILON)
 
     # geometry-box slab test: every ray of the tile enters the box at
@@ -196,23 +229,54 @@ def cull_lists(scn: DeviceScene, o, v, live=None, limit=None):
 
 
 # --------------------------------------------------------------------------
-# family solves (pallas_trace.py L108-217), elementwise over broadcastable
+# f32 arithmetic as the reference computes it: the sites XLA contracts on
+# the CPU are fused multiply-adds (mathnd.fma), every other operation rounds
+# on its own; roots are correctly rounded (mathnd.sqrt).  The CUDA kernels,
+# built with -fmad=false, use __fmaf_rn at exactly the same sites.
+
+
+def dot(xs, ys):
+    """sum(x * y for x, y in zip(xs, ys)) as XLA contracts it: the first
+    product fused into the add of the second, every later product fused
+    into the running sum."""
+    if len(xs) == 1:
+        return xs[0] * ys[0]
+    acc = fma(xs[0], ys[0], xs[1] * ys[1])
+    for x, y in zip(xs[2:], ys[2:]):
+        acc = fma(x, y, acc)
+    return acc
+
+
+def _cross2(xa, yb, xb, ya):
+    """xa * yb - xb * ya, contracted: fma(xa, yb, -(xb * ya))."""
+    return fma(xa, yb, -(xb * ya))
+
+
+def _axes_sum(coef, ax, d, minus):
+    """sum_i coef[i] * ax[i][d] - minus (the quadric's P and Q rows): with
+    one axis the product fuses into the subtract; with more, the sum of
+    products is contracted and the subtract rounds on its own."""
+    if len(coef) == 1:
+        return fma(coef[0], ax[0][d], -minus)
+    return dot(coef, [a[d] for a in ax]) - minus
+
+
+# --------------------------------------------------------------------------
+# family solves (pallas_trace.py L108-255), elementwise over broadcastable
 # ray components o[d], v[d] and object parameters
 
 
 def _sphere_eval(c, r2, o, v, D, want_normal):
     oc = [o[d] - c[d] for d in range(D)]
-    voc = sum(v[d] * oc[d] for d in range(D))
+    voc = dot(v, oc)
     t_hat = -voc                                       # closest approach
-    ocl = [oc[d] + t_hat * v[d] for d in range(D)]     # hit-local offset
-    perp2 = 0.0
-    for a in range(D):
-        for b in range(a + 1, D):
-            m = v[a] * ocl[b] - v[b] * ocl[a]
-            perp2 = perp2 + m * m
+    ocl = [fma(t_hat, v[d], oc[d]) for d in range(D)]  # hit-local offset
+    ms = [_cross2(v[a], ocl[b], v[b], ocl[a])
+          for a in range(D) for b in range(a + 1, D)]
+    perp2 = dot(ms, ms)
     desc = r2 - perp2
-    droot = torch.sqrt(torch.clamp_min(desc, 0.0))
-    vocl = sum(v[d] * ocl[d] for d in range(D))
+    droot = sqrt(torch.clamp_min(desc, 0.0))
+    vocl = dot(v, ocl)
     near = t_hat - vocl - droot
     far = t_hat - vocl + droot
     t = torch.where(near >= EPSILON, near,
@@ -221,54 +285,78 @@ def _sphere_eval(c, r2, o, v, D, want_normal):
     if not want_normal:
         return t, None
     dt_ = t - t_hat
-    return t, [ocl[d] + dt_ * v[d] for d in range(D)]  # hit - center
+    return t, [fma(dt_, v[d], ocl[d]) for d in range(D)]  # hit - center
 
 
 def _plane_eval(p, nv, r2, o, v, D, want_normal):
-    ln = sum(v[d] * nv[d] for d in range(D))
-    pln = sum((p[d] - o[d]) * nv[d] for d in range(D))
+    ln = dot(v, nv)
+    pln = dot([p[d] - o[d] for d in range(D)], nv)
     big_ln = ln.abs() > EPSILON
     dd = pln / torch.where(big_ln, ln, 1.0)
     ok = big_ln & (dd >= EPSILON)
-    dist2 = 0.0
-    for d in range(D):
-        off = (o[d] - p[d]) + dd * v[d]
-        dist2 = dist2 + off * off
-    ok &= dist2 <= r2
+    off = [fma(dd, v[d], o[d] - p[d]) for d in range(D)]
+    ok &= dot(off, off) <= r2
     t = torch.where(ok, dd, BIG)
     if not want_normal:
         return t, None
     return t, [nv[d].expand(t.shape) for d in range(D)]
 
 
-def _quadric_eval(base, ax, lo, hi, off, o, v, D, A, want_normal):
-    # cylinder solve; the port compiles no orthotope slab, so the slab
-    # acceptance and its closest-approach fallback (orthotope.c:233-275)
-    # are left out
+def _gate_pierced(qgt, qgp, o, v, D, B):
+    """kd leaf-cell gate (pallas_trace L219-250): does the ray pierce one
+    of the B t boxes, position-checked in near-parallel dims?  qgt / qgp:
+    [..., B, D, 2] boxes of each candidate's gate slot."""
+    pierced = None
+    for b in range(B):
+        tl = torch.full((), -BIG, device=qgt.device)
+        tu = torch.full((), BIG, device=qgt.device)
+        ok_pos = torch.ones((), dtype=torch.bool, device=qgt.device)
+        for d in range(D):
+            usable = v[d].abs() >= EPSILON2
+            safe_v = torch.where(usable, v[d], 1.0)
+            t_a = (qgt[..., b, d, 0] - o[d]) / safe_v
+            t_b = (qgt[..., b, d, 1] - o[d]) / safe_v
+            tl = torch.where(usable, torch.maximum(tl, torch.minimum(t_a,
+                                                                     t_b)),
+                             tl)
+            tu = torch.where(usable, torch.minimum(tu, torch.maximum(t_a,
+                                                                     t_b)),
+                             tu)
+            ok_pos = ok_pos & (usable | ((o[d] >= qgp[..., b, d, 0] - EPSILON)
+                                         & (o[d] <= qgp[..., b, d, 1]
+                                            + EPSILON)))
+        pb = ok_pos & (tu + EPSILON >= -EPSILON) & (tl - EPSILON
+                                                    <= tu + EPSILON)
+        pierced = pb if pierced is None else (pierced | pb)
+    return pierced
+
+
+def _quadric_eval(base, ax, lo, hi, off, slab, gates, o, v, D, A,
+                  want_normal):
+    """Cylinder / orthotope solve (cylinder.c:104-210, orthotope.c:150-302)
+    with the slab acceptance |qa| > EPSILON, the orthotope closest-approach
+    fallback (orthotope.c:233-275) and, with ``gates`` = (qgt, qgp), the kd
+    leaf-cell gate."""
     x = [o[d] - base[d] for d in range(D)]
-    alpha = [sum(v[d] * ax[i][d] for d in range(D)) for i in range(A)]
-    beta = [sum(x[d] * ax[i][d] for d in range(D)) for i in range(A)]
-    P = [sum(alpha[i] * ax[i][d] for i in range(A)) - v[d] for d in range(D)]
-    qa = sum(p * p for p in P)
+    alpha = [dot(v, ax[i]) for i in range(A)]
+    beta = [dot(x, ax[i]) for i in range(A)]
+    P = [_axes_sum(alpha, ax, d, v[d]) for d in range(D)]
+    qa = dot(P, P)
     usable = qa.abs() > 1e-20
     safe_qa = torch.where(usable, qa, 1.0)
-    Q0 = [sum(beta[i] * ax[i][d] for i in range(A)) - x[d] for d in range(D)]
-    pq = sum(p * q for p, q in zip(P, Q0))
-    t_hat = -pq / safe_qa                   # coarse closest-approach anchor
+    Q0 = [_axes_sum(beta, ax, d, x[d]) for d in range(D)]
+    t_hat = -dot(P, Q0) / safe_qa           # coarse closest-approach anchor
 
     # hit-local re-solve at p = o + t_hat v (object-scale magnitudes)
-    beta_l = [beta[i] + t_hat * alpha[i] for i in range(A)]
-    xl = [x[d] + t_hat * v[d] for d in range(D)]
-    Q = [sum(beta_l[i] * ax[i][d] for i in range(A)) - xl[d]
-         for d in range(D)]
-    qb = 2.0 * sum(p * q for p, q in zip(P, Q))
-    gram = 0.0
-    for a in range(D):
-        for b in range(a + 1, D):
-            m = P[a] * Q[b] - P[b] * Q[a]
-            gram = gram + m * m
-    det = 4.0 * (qa * off - gram)
-    droot = torch.sqrt(torch.clamp_min(det, 0.0))
+    beta_l = [fma(t_hat, alpha[i], beta[i]) for i in range(A)]
+    xl = [fma(t_hat, v[d], x[d]) for d in range(D)]
+    Q = [_axes_sum(beta_l, ax, d, xl[d]) for d in range(D)]
+    qb = 2.0 * dot(P, Q)
+    ms = [_cross2(P[a], Q[b], P[b], Q[a])
+          for a in range(D) for b in range(a + 1, D)]
+    gram = dot(ms, ms)
+    det = 4.0 * fma(qa, off, -gram)
+    droot = sqrt(torch.clamp_min(det, 0.0))
     d_near = (-qb - droot) / (2.0 * safe_qa)
     d_far = (-qb + droot) / (2.0 * safe_qa)
     t_near = t_hat + d_near
@@ -277,19 +365,32 @@ def _quadric_eval(base, ax, lo, hi, off, o, v, D, A, want_normal):
     def ends(delta):
         ok = None
         for i in range(A):
-            s = beta_l[i] + delta * alpha[i]
+            s = fma(delta, alpha[i], beta_l[i])
             oi = (s >= lo[i]) & (s <= hi[i])
             ok = oi if ok is None else ok & oi
         return ok
 
-    quad_valid = (det >= 0.0) & usable
+    is_slab = slab > 0
+    quad_valid = (det >= 0.0) & ((is_slab & (qa.abs() > EPSILON))
+                                 | (~is_slab & usable))
     ok2 = quad_valid & (t_near > EPSILON) & ends(d_near)
     ok1 = quad_valid & (t_far > EPSILON) & ends(d_far)
-    t = torch.where(ok2, t_near, torch.where(ok1, t_far, BIG))
+    # orthotope closest-approach fallback (orthotope.c:233-275)
+    d_min = -qb / (2.0 * safe_qa)
+    t_f = t_hat + d_min
+    surf = gram / safe_qa - off
+    ok_f = (is_slab & usable & (t_f >= EPSILON) & (surf.abs() <= EPSILON)
+            & ends(d_min))
+    t = torch.where(ok2, t_near,
+                    torch.where(ok1, t_far, torch.where(ok_f, t_f, BIG)))
+    if gates is not None:
+        qgt, qgp = gates
+        t = torch.where(_gate_pierced(qgt, qgp, o, v, D, qgt.shape[-3]), t,
+                        BIG)
     if not want_normal:
         return t, None
-    delta = torch.where(ok2, d_near, d_far)     # a winner has ok2 or ok1
-    return t, [-(Q[d] + delta * P[d]) for d in range(D)]
+    delta = torch.where(ok2, d_near, torch.where(ok1, d_far, d_min))
+    return t, [-fma(delta, P[d], Q[d]) for d in range(D)]
 
 
 def _eval(scn: DeviceScene, fam, rows, o, v, want_normal):
@@ -308,12 +409,16 @@ def _eval(scn: DeviceScene, fam, rows, o, v, want_normal):
     A = scn.a_quad
     base = scn.qbase[rows]
     ax = scn.qaxes[rows]
+    gates = None
+    if scn.b_gate:
+        gi = scn.qgi[rows].long()
+        gates = (scn.qgt[gi], scn.qgp[gi])
     return _quadric_eval(
         [base[..., d] for d in range(D)],
         [[ax[..., i, d] for d in range(D)] for i in range(A)],
         [scn.qlo[rows][..., i] for i in range(A)],
         [scn.qhi[rows][..., i] for i in range(A)],
-        scn.qoff[rows], o, v, D, A, want_normal)
+        scn.qoff[rows], scn.qslab[rows], gates, o, v, D, A, want_normal)
 
 
 def _tile_candidates(scn, lists, counts, tiles, col, off):
@@ -334,10 +439,70 @@ def _ray_chunks(R):
         yield r0, r1, torch.arange(r0 // RT, r1 // RT)
 
 
-def _comps(a, n_tiles):
-    """[r, D] -> per-d components shaped [n_tiles, RT, 1]."""
-    a = a.reshape(n_tiles, RT, a.shape[-1])
-    return [a[..., d:d + 1] for d in range(a.shape[-1])]
+def _closest_ref(scn: DeviceScene, lists, counts, o, v, excl=None,
+                 first_rank=None):
+    """Per ray, the closest hit over its tile's candidate list in
+    global-id order with a strict ``<`` (an earlier gid wins a tie:
+    first-index argmin; NaN never wins).  o / v: D components, each a
+    per-ray [R] tensor or a 0-d scalar shared by all rays.  ``excl`` [R]:
+    a candidate of that material is skipped (closest mode); ``first_rank``
+    [R]: an infinite candidate ranked after it is skipped (the point-light
+    shadow truncation, pallas_trace L958-982).
+
+    Returns (t [R] (BIG on a miss), mat [R] i32 (-1), family index [R]
+    (-1 on a miss), local row [R])."""
+    R = lists.shape[0] * RT
+    dev = lists.device
+    t_out = torch.empty(R, dtype=torch.float32, device=dev)
+    fam_out = torch.empty(R, dtype=torch.long, device=dev)
+    row_out = torch.empty(R, dtype=torch.long, device=dev)
+    fams = _families(scn)
+
+    def per_ray(x, r0, r1, nt):
+        return x if x.dim() == 0 else x[r0:r1].reshape(nt, RT, 1)
+
+    for r0, r1, tiles in _ray_chunks(R):
+        nt = len(tiles)
+        oc = [per_ray(x, r0, r1, nt) for x in o]
+        vc = [per_ray(x, r0, r1, nt) for x in v]
+        ts, rows_all, fam_all = [], [], []
+        for fi, (fam, col, off, _) in enumerate(fams):
+            rows, valid = _tile_candidates(scn, lists, counts,
+                                           tiles.to(dev), col, off)
+            if rows is None:
+                continue
+            t, _ = _eval(scn, fam, rows, oc, vc, False)
+            if excl is not None:
+                t = torch.where(scn.mat[rows + off] == per_ray(excl, r0, r1,
+                                                               nt), BIG, t)
+            if first_rank is not None:
+                rank = scn.rank[rows + off]
+                elig = (rank >= NOTINF) | (rank <= per_ray(first_rank, r0, r1,
+                                                           nt))
+                t = torch.where(elig, t, BIG)
+            # invalid slots and NaN never win a strict '<' scan
+            ts.append(torch.where(valid & (t < BIG), t, BIG))
+            rows_all.append(rows.expand(t.shape))
+            fam_all.append(torch.full_like(rows.expand(t.shape), fi))
+        if not ts:
+            t_out[r0:r1] = BIG
+            fam_out[r0:r1] = -1
+            row_out[r0:r1] = 0
+            continue
+        tt = torch.cat(ts, -1)
+        k_w = tt.argmin(-1, keepdim=True)          # first minimal index
+        t_w = tt.gather(-1, k_w)[..., 0]
+        t_out[r0:r1] = t_w.reshape(-1)
+        row_out[r0:r1] = torch.cat(rows_all, -1).gather(-1, k_w).reshape(-1)
+        fam_out[r0:r1] = torch.where(
+            t_w < BIG, torch.cat(fam_all, -1).gather(-1, k_w)[..., 0],
+            -1).reshape(-1)
+    mat = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    for fi, (_, _, off, _) in enumerate(fams):
+        sel = fam_out == fi
+        mat = torch.where(sel, scn.mat[torch.where(sel, row_out + off, 0)],
+                          mat)
+    return t_out, mat, fam_out, row_out
 
 
 # --------------------------------------------------------------------------
@@ -347,63 +512,26 @@ def _comps(a, n_tiles):
 def trace_closest_ref(scn: DeviceScene, o, v, aux, lists, counts):
     """Plain twin of the trace_closest kernel: per ray, the closest hit
     over its tile's candidate list with the hit-local re-solve, strict
-    ``<`` in global-id order (an earlier gid wins a tie: first-index
-    argmin), candidates of the excluded material ``aux`` skipped; then
-    the winner's normal and its 8 material properties (zeros on a miss).
+    ``<`` in global-id order, candidates of the excluded material ``aux``
+    skipped; then the winner's normal and its 8 material properties
+    (zeros on a miss).
 
     o, v [R, D] f32; aux [R] i32; lists/counts from cull_lists.
     Returns t [R] f32 (BIG on a miss), mat [R] i32 (-1), nrm [R, D],
     props [R, N_PROPS]."""
     R, D = o.shape
-    dev = o.device
-    t_out = torch.empty(R, dtype=torch.float32, device=dev)
-    m_out = torch.empty(R, dtype=torch.int32, device=dev)
-    n_out = torch.empty((R, D), dtype=torch.float32, device=dev)
-    fams = _families(scn)
-    for r0, r1, tiles in _ray_chunks(R):
-        nt = len(tiles)
-        oc, vc = _comps(o[r0:r1], nt), _comps(v[r0:r1], nt)
-        excl = aux[r0:r1].reshape(nt, RT, 1)
-        ts, rows_all, fam_all = [], [], []
-        for fi, (fam, col, off, _) in enumerate(fams):
-            rows, valid = _tile_candidates(scn, lists, counts,
-                                           tiles.to(dev), col, off)
-            if rows is None:
-                continue
-            t, _ = _eval(scn, fam, rows, oc, vc, False)
-            t = torch.where(scn.mat[rows + off] == excl, BIG, t)
-            # invalid slots and NaN never win a strict '<' scan
-            ts.append(torch.where(valid & (t < BIG), t, BIG))
-            rows_all.append(rows.expand(t.shape))
-            fam_all.append(torch.full_like(rows.expand(t.shape), fi))
-        shape = (nt, RT)
-        if not ts:
-            t_w = torch.full(shape, BIG, device=dev)
-            win_row = torch.zeros(shape, dtype=torch.long, device=dev)
-            win_fam = torch.full(shape, -1, dtype=torch.long, device=dev)
-        else:
-            tt = torch.cat(ts, -1)
-            k_w = tt.argmin(-1, keepdim=True)      # first minimal index
-            t_w = tt.gather(-1, k_w)[..., 0]
-            win_row = torch.cat(rows_all, -1).gather(-1, k_w)[..., 0]
-            win_fam = torch.cat(fam_all, -1).gather(-1, k_w)[..., 0]
-            win_fam = torch.where(t_w < BIG, win_fam, -1)
-        nrm = [torch.zeros(shape, device=dev) for _ in range(D)]
-        mat = torch.full(shape, -1, dtype=torch.int32, device=dev)
-        o2 = [x[..., 0] for x in oc]
-        v2 = [x[..., 0] for x in vc]
-        for fi, (fam, _, off, _) in enumerate(fams):
-            sel = win_fam == fi
-            rows = torch.where(sel, win_row, 0)
-            _, nf = _eval(scn, fam, rows, o2, v2, True)
-            nrm = [torch.where(sel, a, b) for a, b in zip(nf, nrm)]
-            mat = torch.where(sel, scn.mat[rows + off], mat)
-        t_out[r0:r1] = t_w.reshape(-1)
-        m_out[r0:r1] = mat.reshape(-1)
-        n_out[r0:r1] = torch.stack(nrm, -1).reshape(-1, D)
-    props = torch.where((m_out >= 0)[:, None],
-                        scn.props[m_out.clamp_min(0).long()], 0.0)
-    return t_out, m_out, n_out, props
+    oc = [o[:, d] for d in range(D)]
+    vc = [v[:, d] for d in range(D)]
+    t, mat, win_fam, win_row = _closest_ref(scn, lists, counts, oc, vc,
+                                            excl=aux)
+    nrm = [torch.zeros(R, device=o.device) for _ in range(D)]
+    for fi, (fam, _, _, _) in enumerate(_families(scn)):
+        sel = win_fam == fi
+        _, nf = _eval(scn, fam, torch.where(sel, win_row, 0), oc, vc, True)
+        nrm = [torch.where(sel, a, b) for a, b in zip(nf, nrm)]
+    props = torch.where((mat >= 0)[:, None],
+                        scn.props[mat.clamp_min(0).long()], 0.0)
+    return t, mat, torch.stack(nrm, 1), props
 
 
 def _check(name, x, shape, dtype, device):
@@ -428,6 +556,14 @@ def _check_rays(scn, o, v, lists, counts):
     _check("counts", counts, (R // RT, N_FAMS), torch.int32, dev)
 
 
+def _on_card(x):
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    from ndt_tpu_torch.kernels.build import load_library
+
+    return load_library()
+
+
 def trace_closest(scn: DeviceScene, o, v, aux, lists, counts):
     """Closest hit (see trace_closest_ref): the twin on the CPU, the
     ``trace_closest`` CUDA kernel on the card."""
@@ -436,33 +572,24 @@ def trace_closest(scn: DeviceScene, o, v, aux, lists, counts):
     _check("aux", aux, (R,), torch.int32, scn.device)
     if o.device.type == "cpu":
         return trace_closest_ref(scn, o, v, aux, lists, counts)
-    if o.device.type != "cuda":
-        raise ValueError(f"unsupported device {o.device}")
-    from ndt_tpu_torch.kernels.build import load_library
-
-    out = _launch_trace_closest(load_library(), _stream(), scn, o, v, aux,
-                                lists, counts)
-    launch_counts["trace_closest"] += 1
-    return out
-
-
-def _launch_trace_closest(lib, stream, scn, o, v, aux, lists, counts):
-    R, D = o.shape
+    lib = _on_card(o)
     t = torch.empty(R, dtype=torch.float32, device=o.device)
     m = torch.empty(R, dtype=torch.int32, device=o.device)
     nrm = torch.empty((R, D), dtype=torch.float32, device=o.device)
     props = torch.empty((R, N_PROPS), dtype=torch.float32, device=o.device)
     tables = _c_tables(scn)
     err = lib.ndt_trace_closest(
-        ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists), _p(counts),
-        lists.shape[1], _p(scn.props), _p(t), _p(m), _p(nrm), _p(props),
-        R, stream)
+        ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists),
+        _p(counts), lists.shape[1], _p(scn.props), _p(t), _p(m), _p(nrm),
+        _p(props), R, _stream())
     _raise_on(err, "trace_closest")
+    launch_counts["trace_gated" if is_gated(scn) else "trace_closest"] += 1
     return t, m, nrm, props
 
 
 # --------------------------------------------------------------------------
-# kernel 2: fused shading + chain bounce
+# kernel 2: fused shading, then the chain bounce (carry) or the local
+# colour alone
 
 
 def _ipow(x, n):
@@ -479,38 +606,38 @@ def _ipow(x, n):
     return acc if acc is not None else torch.ones_like(x)
 
 
-def _any_hit_ref(scn, lists, counts, so, sv, R):
-    """Per ray: does any candidate of the ray's tile list hit the ray
-    (so[d], sv[d] per-d components)?  The 'd' light shadow test."""
-    dev = lists.device
-    hit = torch.zeros(R, dtype=torch.bool, device=dev)
-    for r0, r1, tiles in _ray_chunks(R):
-        nt = len(tiles)
-        oc = [x[r0:r1].reshape(nt, RT, 1) for x in so]
-        vc = [x if x.dim() == 0 else x[r0:r1].reshape(nt, RT, 1)
-              for x in sv]
-        h = torch.zeros((nt, RT), dtype=torch.bool, device=dev)
-        for fam, col, off, _ in _families(scn):
-            rows, valid = _tile_candidates(scn, lists, counts,
-                                           tiles.to(dev), col, off)
-            if rows is None:
-                continue
-            t, _ = _eval(scn, fam, rows, oc, vc, False)
-            h |= (valid & (t < BIG * 0.5)).any(-1)
-        hit[r0:r1] = h.reshape(-1)
-    return hit
+def light_fields(kinds, D):
+    """Offsets into the fused light table (trace.fused_light_info): per
+    light (kind, colour, spec colour, geometry), the geometry being the
+    unit direction ('d') or the position ('p', 's'; a spot's unit axis
+    follows at +D and its cosine cutoff at +2D); and the table length."""
+    out, off = [], 6
+    for k in kinds:
+        out.append((k, off, off + 3, off + 6))
+        off += 6 + (2 * D + 1 if k == "s" else D)
+    return out, off
 
 
-def shade_carry_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec,
-                    culls, kinds, specular, w, frac, color, live):
-    """Plain twin of the shade_carry kernel: fused apply_lights (ambient +
-    directional lights, ndt.c:71-326) and the chain-mode bounce step
-    (ndt.c:329-419), as pallas_trace._make_shade_kernel with carry.
+def _first_rank_ref(scn, lp, sv, limit):
+    """Lowest shadow rank among the INFINITE leaves hit within ``limit``
+    from the light (the C's scan-order break, object.c:736-738; pallas
+    L946-956), NOTINF where none is."""
+    fr = torch.full(limit.shape, NOTINF, dtype=torch.int32,
+                    device=limit.device)
+    for gid, rank in scn.inf_gids:
+        fam, loc = _gid_family(scn, gid)
+        t_e, _ = _eval(scn, fam, torch.tensor(loc, device=limit.device), lp,
+                       sv, False)
+        within = (t_e < limit) & (t_e < BIG * 0.5)
+        fr = torch.where(within, torch.clamp_max(fr, rank), fr)
+    return fr
 
-    lvec: trace.fused_light_info's flat table; culls: per light (lists,
-    counts) over that light's shadow rays.  Returns (o' [R,D], v' [R,D],
-    w' [R,3], frac' [R], color' [R,3], nxt [R] bool); nxt leaves out the
-    max-depth condition, which the caller ANDs on."""
+
+def _shade_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
+               kinds, specular):
+    """apply_lights (ndt.c:71-326) as the fused shade kernel computes it
+    (pallas_trace L984-1074).  Returns the local colour (3 [R] tensors)
+    and the terms the chain bounce reuses."""
     R, D = o.shape
     oc = [o[:, d] for d in range(D)]
     vc = [v[:, d] for d in range(D)]
@@ -519,28 +646,54 @@ def shade_carry_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec,
     wr = [props[:, 3 + j] for j in range(3)]    # winner reflectivity
     wt = props[:, 6]                            # winner transparency
     hitm = t < BIG * 0.5
-    p = [oc[d] + t * vc[d] for d in range(D)]
-    nn = sum(n1[d] * n1[d] for d in range(D))
-    nlen = torch.sqrt(nn)
-    vdotn = sum(vc[d] * n1[d] for d in range(D))
+    p = [fma(t, vc[d], oc[d]) for d in range(D)]
+    nn = dot(n1, n1)
+    nlen = sqrt(nn)
+    vdotn = dot(vc, n1)
     rv_dot_n = -t * vdotn                       # rev_view . n (ndt.c:160)
     out = [wc[j] * lvec[j] for j in range(3)]   # ambient (ndt.c:89-111)
-    off = 6
-    for li in range(len(kinds)):              # every kind is 'd'
-        lcol = [lvec[off + j] for j in range(3)]
-        lspec = [lvec[off + 3 + j] for j in range(3)]
-        u = [lvec[off + 6 + d] for d in range(D)]
-        off += 6 + D
-        # directional (ndt.c:230-249): from the surface, EPSILON off,
-        # toward -unit(light dir); blocked by any hit
-        so = [p[d] - u[d] * EPSILON for d in range(D)]
-        sv = [0.0 - u[d] for d in range(D)]
-        shadow_ok = ~_any_hit_ref(scn, culls[li][0], culls[li][1], so, sv, R)
-        rl_dot_n = -sum(u[d] * n1[d] for d in range(D))
-        lit = (rl_dot_n * rv_dot_n > 0.0) & shadow_ok & hitm  # two-sided
-        ndotl = sum(n1[d] * u[d] for d in range(D))
+    for li, (kind, o_col, o_spec, o_geo) in enumerate(light_fields(kinds,
+                                                                   D)[0]):
+        lcol = [lvec[o_col + j] for j in range(3)]
+        lspec = [lvec[o_spec + j] for j in range(3)]
+        lists, counts = culls[li]
+        if kind == "d":
+            # directional (ndt.c:230-249): from the surface, EPSILON off,
+            # toward -unit(light dir); blocked by any hit
+            u = [lvec[o_geo + d] for d in range(D)]
+            so = [fma(-u[d], EPSILON, p[d]) for d in range(D)]
+            sv = [0.0 - u[d] for d in range(D)]
+            t_s = _closest_ref(scn, lists, counts, so, sv)[0]
+            shadow_ok = ~(t_s < BIG * 0.5)
+            lvu, ldist2 = u, 1.0
+            rl_dot_n = -dot(u, n1)
+        else:
+            # point / spot (ndt.c:209-228): from the LIGHT toward the
+            # surface; lit iff the closest hit within the limit is the
+            # same object within EPSILON of the shaded point
+            lp = [lvec[o_geo + d] for d in range(D)]
+            sd_ = [p[d] - lp[d] for d in range(D)]
+            dist2 = dot(sd_, sd_)
+            dist = sqrt(dist2)
+            inv = 1.0 / torch.clamp_min(dist, 1e-20)
+            sv = [sd_[d] * inv for d in range(D)]
+            fr = _first_rank_ref(scn, lp, sv, dist + EPSILON)
+            t_s, m_s, _, _ = _closest_ref(scn, lists, counts, lp, sv,
+                                          first_rank=fr)
+            e = [fma(t_s, sv[d], lp[d]) - p[d] for d in range(D)]
+            d2 = dot(e, e)
+            shadow_ok = (t_s < BIG * 0.5) & (m_s == mat) & (d2 <= EPSILON2)
+            if kind == "s":      # cone (ndt.c:201-207)
+                cosang = dot([lvec[o_geo + D + d] for d in range(D)], sv)
+                shadow_ok &= cosang >= lvec[o_geo + 2 * D]
+            lvu, ldist2 = sv, dist2
+            rl_dot_n = -dot(sv, n1)
+        # two-sided test (ndt.c:160-168)
+        lit = (rl_dot_n * rv_dot_n > 0.0) & shadow_ok & hitm
+        # diffuse |cos| / dist^2, opaque only (ndt.c:261-273)
+        ndotl = dot(n1, lvu)
         cos_a = ndotl.abs() / torch.where(nlen > EPSILON, nlen, 1.0)
-        scale = cos_a / 1.0                     # directional: dist^2 = 1
+        scale = cos_a / ldist2
         dmask = lit & (wt <= 0.0)
         for j in range(3):
             out[j] = out[j] + torch.where(dmask, wc[j] * lcol[j] * scale,
@@ -549,19 +702,44 @@ def shade_carry_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec,
             # the C's specular: light reflected with mag 0.5, dotted with
             # the reverse view, ^50 (ndt.c:276-310)
             coef = 1.5 * ndotl / nn
-            lr = [u[d] - coef * n1[d] for d in range(D)]
-            lrn = torch.sqrt(sum(x * x for x in lr))
+            lr = [fma(-coef, n1[d], lvu[d]) for d in range(D)]
+            lrn = sqrt(dot(lr, lr))
             ok = lrn > EPSILON
             lru = [torch.where(ok, lr[d] / torch.where(ok, lrn, 1.0), lr[d])
                    for d in range(D)]
-            rv = torch.clamp_min(-sum(lru[d] * vc[d] for d in range(D)),
-                                 0.0)
+            rv = torch.clamp_min(-dot(lru, vc), 0.0)
             rvn = _ipow(rv, SPECULAR_POWER)
             for j in range(3):
                 out[j] = out[j] + torch.where(lit, wr[j] * lspec[j] * rvn,
                                               0.0)
+    return out, hitm, p, vdotn, nn, wr, wt
 
-    # chain-mode bounce (get_ray_color, ndt.c:329-419)
+
+def shade_local_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
+                    kinds, specular):
+    """Plain twin of the shade kernel without carry: apply_lights' local
+    colour [R, 3] (garbage on miss lanes, which callers mask)."""
+    out = _shade_ref(scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
+                     specular)[0]
+    return torch.stack(out, 1)
+
+
+def shade_carry_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec,
+                    culls, kinds, specular, w, frac, color, live,
+                    escalate=False):
+    """Plain twin of the shade kernel with carry: fused apply_lights, then
+    the chain-mode bounce step (ndt.c:329-419), as
+    pallas_trace._make_shade_kernel with carry.
+
+    lvec: trace.fused_light_info's flat table; culls: per light (lists,
+    counts) over that light's shadow rays.  Returns (o' [R,D], v' [R,D],
+    w' [R,3], frac' [R], color' [R,3], nxt [R] bool); nxt leaves out the
+    max-depth condition, which the caller ANDs on.  ``escalate``
+    (L1112-1119): a live lane whose winner is transparent taints and
+    freezes (nxt False); the return gains taint [R] bool."""
+    out, hitm, p, vdotn, nn, wr, wt = _shade_ref(
+        scn, o, v, t, mat, nrm, props, lvec, culls, kinds, specular)
+    D = o.shape[1]
     hit = hitm & live
     contrib = torch.maximum(torch.maximum(wr[0], wr[1]), wr[2])
     refl_any = (wr[0] != 0.0) | (wr[1] != 0.0) | (wr[2] != 0.0)
@@ -570,14 +748,14 @@ def shade_carry_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec,
         lw = (1.0 - wr[j]) if specular else 1.0   # ndt.c:405-414
         node = torch.where(hit, lw * out[j],
                            torch.where(live, lvec[3 + j], 0.0))
-        c2[:, j] = color[:, j] + w[:, j] * node
+        c2[:, j] = fma(w[:, j], node, color[:, j])
     # importance cutoff frac < 1/512 (ndt.c:336-337)
     nxt = (hit & (contrib > 0.0) & refl_any
            & (frac * contrib >= MIN_PIXEL_FRAC))
     # mirror bounce v' = unitize(reflect(v, n, 1)) (vectNd.c:101-117)
     coef2 = 2.0 * vdotn / nn
-    rf = [vc[d] - coef2 * n1[d] for d in range(D)]
-    rfn = torch.sqrt(sum(x * x for x in rf))
+    rf = [fma(-coef2, nrm[:, d], v[:, d]) for d in range(D)]
+    rfn = sqrt(dot(rf, rf))
     okn = rfn > EPSILON
     rfu = [torch.where(okn, rf[d] / torch.where(okn, rfn, 1.0), rf[d])
            for d in range(D)]
@@ -586,21 +764,21 @@ def shade_carry_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec,
     v2 = torch.where(nx, torch.stack(rfu, 1), v)
     w2 = torch.where(nx, w * torch.stack(wr, 1), w)
     f2 = torch.where(nxt, frac * contrib, frac)
-    return o2, v2, w2, f2, c2, nxt
+    if not escalate:
+        return o2, v2, w2, f2, c2, nxt
+    taint = hit & (wt > 0.0)
+    return o2, v2, w2, f2, c2, nxt & ~taint, taint
 
 
-def shade_carry(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
-                kinds, specular, w, frac, color, live):
-    """Fused shading + chain bounce (see shade_carry_ref): the twin on the
-    CPU, the ``shade_carry`` CUDA kernel on the card.  Only ambient and
-    directional ('d') lights are ported, on either device."""
+def _check_shade(scn, o, v, t, mat, nrm, props, lvec, culls, kinds):
     if not kinds:
-        raise ValueError("shade_carry needs at least one directional light "
+        raise ValueError("shading needs at least one non-ambient light "
                          "(fused_light_info is None for a scene without)")
-    if any(k != "d" for k in kinds):
+    bad = [k for k in kinds if k not in LIGHT_KINDS]
+    if bad:
         raise NotImplementedError(
-            f"fused light kinds {kinds}: only directional ('d') lights are "
-            "ported (ROADMAP Queue 2 row 3c)")
+            f"fused light kinds {bad}: only directional, point and spot "
+            "lights are ported (area lights: ROADMAP Queue 2 row 3c)")
     if len(culls) != len(kinds):
         raise ValueError("one (lists, counts) cull per light")
     R, D = o.shape
@@ -611,48 +789,82 @@ def shade_carry(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
     _check("mat", mat, (R,), torch.int32, dev)
     _check("nrm", nrm, (R, D), torch.float32, dev)
     _check("props", props, (R, N_PROPS), torch.float32, dev)
-    _check("lvec", lvec, (6 + len(kinds) * (6 + D),), torch.float32, dev)
+    _check("lvec", lvec, (light_fields(kinds, D)[1],), torch.float32, dev)
+
+
+def shade_carry(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
+                kinds, specular, w, frac, color, live, escalate=False):
+    """Fused shading + chain bounce (see shade_carry_ref): the twin on the
+    CPU, the ``shade`` CUDA kernel in carry (or escalate) mode on the
+    card."""
+    _check_shade(scn, o, v, t, mat, nrm, props, lvec, culls, kinds)
+    R = o.shape[0]
+    dev = scn.device
     _check("w", w, (R, 3), torch.float32, dev)
     _check("frac", frac, (R,), torch.float32, dev)
     _check("color", color, (R, 3), torch.float32, dev)
     _check("live", live, (R,), torch.bool, dev)
     if o.device.type == "cpu":
         return shade_carry_ref(scn, o, v, t, mat, nrm, props, lvec, culls,
-                               kinds, specular, w, frac, color, live)
-    if o.device.type != "cuda":
-        raise ValueError(f"unsupported device {o.device}")
-    from ndt_tpu_torch.kernels.build import load_library
+                               kinds, specular, w, frac, color, live,
+                               escalate)
+    lib = _on_card(o)
+    o2, v2 = torch.empty_like(o), torch.empty_like(v)
+    w2, f2, c2 = (torch.empty_like(x) for x in (w, frac, color))
+    nxt = torch.empty(R, dtype=torch.bool, device=dev)
+    taint = torch.empty(R, dtype=torch.bool, device=dev)
+    mode = _SHADE_ESCALATE if escalate else _SHADE_CARRY
+    _launch_shade(lib, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
+                  specular, mode, (w, frac, color, live, o2, v2, w2, f2, c2,
+                                   nxt, taint, None))
+    _count_shade("shade_escalate" if escalate else "shade_carry", kinds)
+    out = (o2, v2, w2, f2, c2, nxt)
+    return out + (taint,) if escalate else out
 
-    out = _launch_shade_carry(load_library(), _stream(), scn, o, v, t, mat,
-                              nrm, props, lvec, culls, kinds, specular, w,
-                              frac, color, live)
-    launch_counts["shade_carry"] += 1
-    return out
+
+def shade_local(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
+                kinds, specular):
+    """The local colour [R, 3] (see shade_local_ref): the twin on the CPU,
+    the ``shade`` CUDA kernel in local mode on the card."""
+    _check_shade(scn, o, v, t, mat, nrm, props, lvec, culls, kinds)
+    if o.device.type == "cpu":
+        return shade_local_ref(scn, o, v, t, mat, nrm, props, lvec, culls,
+                               kinds, specular)
+    lib = _on_card(o)
+    local = torch.empty((o.shape[0], 3), dtype=torch.float32,
+                        device=o.device)
+    _launch_shade(lib, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
+                  specular, _SHADE_LOCAL, (None,) * 11 + (local,))
+    _count_shade("shade_local", kinds)
+    return local
 
 
-def _launch_shade_carry(lib, stream, scn, o, v, t, mat, nrm, props, lvec,
-                        culls, kinds, specular, w, frac, color, live):
-    R, D = o.shape
-    dev = o.device
+def _count_shade(mode_name, kinds):
+    launch_counts[mode_name] += 1
+    if "p" in kinds:
+        launch_counts["shade_point"] += 1
+    if "s" in kinds:
+        launch_counts["shade_spot"] += 1
+
+
+# shade kernel modes (csrc/shade.cu)
+_SHADE_CARRY, _SHADE_ESCALATE, _SHADE_LOCAL = 0, 1, 2
+
+
+def _launch_shade(lib, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
+                  specular, mode, io):
+    """io: (w, frac, color, live, o', v', w', frac', color', nxt, taint,
+    local), None where the mode has no such array."""
+    R = o.shape[0]
     lists = torch.stack([c[0] for c in culls]).contiguous()
     counts = torch.stack([c[1] for c in culls]).contiguous()
-    o2 = torch.empty_like(o)
-    v2 = torch.empty_like(v)
-    w2 = torch.empty_like(w)
-    f2 = torch.empty_like(frac)
-    c2 = torch.empty_like(color)
-    nxt = torch.empty(R, dtype=torch.bool, device=dev)
     tables = _c_tables(scn)
-    err = lib.ndt_shade_carry(
+    err = lib.ndt_shade(
         ctypes.addressof(tables), _p(o), _p(v), _p(t), _p(mat), _p(nrm),
         _p(props), _p(lvec), "".join(kinds).encode(), len(kinds),
-        _p(lists), _p(counts),
-        lists.shape[2], int(bool(specular)), int(SPECULAR_POWER), _p(w),
-        _p(frac), _p(color),
-        _p(live), _p(o2), _p(v2), _p(w2), _p(f2), _p(c2), _p(nxt),
-        R, stream)
-    _raise_on(err, "shade_carry")
-    return o2, v2, w2, f2, c2, nxt
+        _p(lists), _p(counts), lists.shape[2], int(bool(specular)),
+        int(SPECULAR_POWER), mode, *(_p(x) for x in io), R, _stream())
+    _raise_on(err, "shade")
 
 
 # --------------------------------------------------------------------------
@@ -663,13 +875,15 @@ class NdtTables(ctypes.Structure):
     """Mirror of ``struct NdtTables`` in csrc/families.cuh."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "sph", "pln", "qbase", "qaxes", "qlo", "qhi", "qoff",
-        "mat")] + [(name, ctypes.c_int) for name in (
-            "n_sph", "n_pln", "n_quad", "a_quad", "dim")]
+        "sph", "pln", "qbase", "qaxes", "qlo", "qhi", "qoff", "qslab", "qgt",
+        "qgp", "qgi", "mat", "rank", "inf")] + [
+            (name, ctypes.c_int) for name in (
+                "n_sph", "n_pln", "n_quad", "a_quad", "b_gate", "n_inf",
+                "dim")]
 
 
 def _p(x):
-    return ctypes.c_void_p(x.data_ptr())
+    return ctypes.c_void_p(None if x is None else x.data_ptr())
 
 
 def _stream():
@@ -679,8 +893,10 @@ def _stream():
 def _c_tables(scn: DeviceScene) -> NdtTables:
     return NdtTables(
         *(getattr(scn, k).data_ptr() for k in (
-            "sph", "pln", "qbase", "qaxes", "qlo", "qhi", "qoff", "mat")),
-        scn.n_sph, scn.n_pln, scn.n_quad, scn.a_quad, scn.dim)
+            "sph", "pln", "qbase", "qaxes", "qlo", "qhi", "qoff", "qslab",
+            "qgt", "qgp", "qgi", "mat", "rank", "inf")),
+        scn.n_sph, scn.n_pln, scn.n_quad, scn.a_quad, scn.b_gate,
+        len(scn.inf_gids), scn.dim)
 
 
 def _raise_on(err, name):

@@ -6,36 +6,42 @@ values as the JAX package's blocks:
 
   SphereBlock   - sphere                                    (sphere.c)
   PlaneBlock    - hplane + hdisk (radius2 = inf for planes) (hplane.c, hdisk.c)
-  QuadricBlock  - cylinder: project out the axis, solve the quadratic in the
-                  complement, slab-test the axis projection (cylinder.c)
+  QuadricBlock  - cylinder and orthotope: project out the A axes, solve the
+                  quadratic in the complement, slab-test the axis
+                  projections (cylinder.c:104-210, orthotope.c:150-302);
+                  orthotopes are thin slabs (qc_off = EPSILON) with the
+                  closest-approach fallback and kd leaf-cell gates
 
 The blocks are numpy dataclasses on the host.  ``to_device`` turns them into
 the tables the CUDA kernels and their plain twins read: the sphere / plane /
 quadric part of ``pallas_trace.pack_params`` (bounds rows with r2 = -1 for
 infinite leaves, padded geometry boxes for the tile cull, the hplane radius2
-clamp, material ids, shadow ranks, the material property table), kept as
-[n, width] tensors in global memory rather than SMEM-flattened rows.
+clamp, material ids, shadow ranks, the material property table, the quadric
+gate boxes deduped per kd item), kept as tensors in global memory rather
+than SMEM-flattened rows.
 
 ``scene_from_numpy`` carries a scene compiled by the JAX package over, so a
 test can run both packages on identical data.
 
 Not ported yet (ROADMAP Queue 1 item 10): facet / hfacet blocks, hcube face
-expansion, clusters, hcylinder / orthotope quadrics and their kd leaf-cell
-gates.  SMEM chunking is a TPU limit the port does not have: its tables sit
-in global memory whole.
+expansion, clusters, hcylinder quadrics, and the budgeted kd builder for
+scenes past _KD_EXACT_MAX kd items.  SMEM chunking is a TPU limit the port
+does not have: its tables sit in global memory whole.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ndt_tpu_torch import mathnd
-from ndt_tpu_torch.constants import BIG
+from ndt_tpu_torch.constants import BIG, EPSILON
 from ndt_tpu_torch.scene.model import LightType, Object, Scene
+from ndt_tpu_torch.utils.kdtree import build_c_exact
 
 NOT_INFINITE = 1 << 30
 N_PROPS = 8        # color3, reflect3, transparent, refract_index
@@ -70,9 +76,14 @@ class QuadricBlock:
     gram: np.ndarray         # [n, A, A] axis Gram matrix
     lo: np.ndarray           # [n, A] axis-projection lower bound
     hi: np.ndarray           # [n, A] upper bound
-    qc_off: np.ndarray       # [n] r^2 subtracted from Q.Q
-    is_slab: np.ndarray      # [n] 1.0 for orthotope slabs (none here)
-    gate_tlo: np.ndarray     # [n, B, D] kd leaf-cell gates: B == 0 here
+    qc_off: np.ndarray       # [n] r^2 (EPSILON for slabs) subtracted from Q.Q
+    is_slab: np.ndarray      # [n] 1.0 where the orthotope fallback applies
+    # kd leaf-cell gate (_kd_cell_gates): a slab's EPSILON-shell hit is
+    # reachable only through a kd leaf cell holding its item.  t boxes are
+    # the cells clipped by the tree AABB (the t-slab test), p boxes the raw
+    # cells (position checks in near-parallel dims, kd-tree.c:545-560);
+    # B == 0 when no leaf of the block is gated
+    gate_tlo: np.ndarray     # [n, B, D]
     gate_thi: np.ndarray
     gate_plo: np.ndarray
     gate_phi: np.ndarray
@@ -134,6 +145,10 @@ class _Leaf:
     kind: str
     obj: Object
     mat_id: int
+    # index of the leaf's kd ITEM (the reference's kd-tree granularity,
+    # object_kdlist_add object.c:633-681); -1 = the object is in the
+    # trace-always infinite list, not the tree (kd-tree.c:446-460)
+    kd_item: int = -1
     # scan position among INFINITE leaves in insertion order, NOT_INFINITE
     # for finite ones: the shadow-trace scan-order quirk (object.c:736-738,
     # kd-tree.c:592-594), see ndt_tpu/scene/compile.py _Leaf
@@ -141,15 +156,35 @@ class _Leaf:
 
 
 _LEAF_KIND = {"sphere": "sphere", "hplane": "plane", "hdisk": "plane",
-              "cylinder": "quadric"}
+              "cylinder": "quadric", "orthotope": "quadric"}
 
 
-def _flatten(objects: List[Object]):
-    """One material per user-visible object and one leaf per object (the
-    ported families have no composite types), each with its bounding
-    sphere fit (object.c:582-603)."""
+def _item_aabb(obj: Object, dim):
+    """object_kdlist_add (object.c:646-672): AABB over the object's
+    bounding points inflated by |radius|, with aabb_add_point's +-EPSILON
+    pad (kd-tree.c:63-81)."""
+    pts = obj.bounding_points()
+    if not pts:
+        return np.full(dim, np.inf), np.full(dim, -np.inf)
+    corners = np.stack([np.asarray(c, np.float64) for c, _ in pts])
+    radii = np.asarray([abs(r) for _, r in pts])[:, None]
+    return ((corners - radii).min(0) - EPSILON,
+            (corners + radii).max(0) + EPSILON)
+
+
+def _flatten(objects: List[Object], dim: int):
+    """One material and one leaf per object (the ported families have no
+    composite types), each with its bounding sphere fit (object.c:582-603),
+    plus the kd ITEM list in the reference's object_kdlist_add order.
+
+    Top-level infinite objects go to the trace-always list
+    (kd-tree.c:446-460), not the tree.  The JAX compiler also walks
+    clusters, whose children enter the item list even when infinite (the
+    reference bounds only top-level objects, ndt.c:1897-1907); clusters are
+    not ported, so every object here is top level."""
     leaves: List[_Leaf] = []
     materials: List[Object] = []
+    kd_items: List[tuple] = []      # (lo, hi) per item, C scan order
     for obj in objects:
         kind = _LEAF_KIND.get(obj.type_name)
         if kind is None:
@@ -158,9 +193,13 @@ def _flatten(objects: List[Object]):
                 "(ROADMAP Queue 1 item 10: remaining families)")
         if obj.bounds_radius is None:
             obj.get_bounds()
+        item = -1
+        if obj.bounds_radius >= 0:
+            kd_items.append(_item_aabb(obj, dim))
+            item = len(kd_items) - 1
         materials.append(obj)
-        leaves.append(_Leaf(kind, obj, len(materials) - 1))
-    return leaves, materials
+        leaves.append(_Leaf(kind, obj, len(materials) - 1, kd_item=item))
+    return leaves, materials, kd_items
 
 
 def _bounds_arrays(leaves, dt):
@@ -177,17 +216,105 @@ def _mat_ids(leaves):
 
 
 # --------------------------------------------------------------------------
+# kd leaf-cell gates (ndt_tpu/scene/compile.py _leaf_gated to
+# _pack_gate_tables)
+
+# max kd leaf cells per item before the gate falls back to their union
+_GATE_MAX = 24
+# max kd items for the C-exact leaf-cell build; past it the JAX package
+# runs a budgeted native builder, which the port does not have yet
+_KD_EXACT_MAX = 256
+
+
+def _leaf_gated(leaf) -> bool:
+    """Orthotope slabs: their EPSILON shell (qc -= EPSILON, orthotope.c:203,
+    closest-approach fallback orthotope.c:233-275) lights a 0.01-thick halo
+    only where the reference's traversal tests the item."""
+    return leaf.kind == "quadric" and leaf.obj.type_name == "orthotope"
+
+
+def _kd_cell_gates(leaves, kd_items, dim):
+    """(cells per kd item, tree AABB lo, hi) for the gated leaves, or None
+    when no leaf is gated.  The C's kd tree is rebuilt exactly
+    (utils/kdtree.build_c_exact) and a gated leaf is tested only by rays
+    piercing the union of its item's leaf cells, clipped by the tree's root
+    AABB for the t-test (kd_tree_intersect enters through
+    aabb_intersect(&tree->bb), kd-tree.c:598)."""
+    gated = {leaf.kd_item for leaf in leaves
+             if leaf.kd_item >= 0 and _leaf_gated(leaf)}
+    if not gated or not kd_items:
+        return None
+    if len(kd_items) > _KD_EXACT_MAX:
+        raise NotImplementedError(
+            f"{len(kd_items)} kd items > {_KD_EXACT_MAX}: gated scenes past "
+            "the C-exact kd build need the budgeted builder (ROADMAP Queue "
+            "1 item 10, with random600)")
+    lowers = np.stack([lo for lo, _ in kd_items])
+    uppers = np.stack([hi for _, hi in kd_items])
+    cells = build_c_exact(lowers, uppers)
+    finite = ~np.isinf(lowers).any(1)
+    bb_lo = lowers[finite].min(0) if finite.any() else np.full(dim, -BIG)
+    bb_hi = uppers[finite].max(0) if finite.any() else np.full(dim, BIG)
+    return cells, bb_lo, bb_hi
+
+
+def _pack_gate_tables(leaves, dim, gates):
+    """[n, B, D] leaf-cell gate boxes of one block's leaves: rows whose leaf
+    is not gated stay +-BIG (always pierced); padding boxes of a gated row
+    are inverted t boxes (never pierced); B == 0 when nothing in the block
+    is gated.  Returns (tlo, thi, plo, phi)."""
+    n = len(leaves)
+    boxes = [None] * n
+    b_max = 0
+    if gates is not None:
+        cells = gates[0]
+        for k, leaf in enumerate(leaves):
+            if not _leaf_gated(leaf) or leaf.kd_item < 0:
+                continue
+            bx = cells[leaf.kd_item]
+            if len(bx) > _GATE_MAX:
+                warnings.warn(
+                    f"some leaf-cell gates exceed {_GATE_MAX} kd cells: "
+                    "falling back to their union box (conservative vs "
+                    "the C's exact traversal)", RuntimeWarning, stacklevel=2)
+                arr = np.stack(bx)                        # [B_k, D, 2]
+                bx = [np.stack([arr[:, :, 0].min(0), arr[:, :, 1].max(0)],
+                               axis=-1)]
+            boxes[k] = bx
+            b_max = max(b_max, len(bx))
+    gate_tlo = np.full((n, b_max, dim), -BIG)
+    gate_thi = np.full((n, b_max, dim), BIG)
+    gate_plo = np.full((n, b_max, dim), -BIG)
+    gate_phi = np.full((n, b_max, dim), BIG)
+    if b_max:
+        _, bb_lo, bb_hi = gates
+        for k, bx in enumerate(boxes):
+            if bx is None:
+                continue
+            cl = np.stack([c[:, 0] for c in bx])          # [B_k, D]
+            ch = np.stack([c[:, 1] for c in bx])
+            nb = len(bx)
+            gate_plo[k, :nb] = np.clip(cl, -BIG, BIG)
+            gate_phi[k, :nb] = np.clip(ch, -BIG, BIG)
+            gate_tlo[k, :nb] = np.clip(np.maximum(cl, bb_lo), -BIG, BIG)
+            gate_thi[k, :nb] = np.clip(np.minimum(ch, bb_hi), -BIG, BIG)
+            gate_tlo[k, nb:] = BIG
+            gate_thi[k, nb:] = -BIG
+    return gate_tlo, gate_thi, gate_plo, gate_phi
+
+
+# --------------------------------------------------------------------------
 # per-family block builders
 
 
-def _build_spheres(leaves, dim, dt):
+def _build_spheres(leaves, dim, dt, gates=None):
     center = np.stack([leaf.obj.pos[0] for leaf in leaves])
     radius2 = np.array([leaf.obj.size[0] ** 2 for leaf in leaves])
     return SphereBlock(center=center.astype(dt), radius2=radius2.astype(dt),
                        mat_id=_mat_ids(leaves), **_bounds_arrays(leaves, dt))
 
 
-def _build_planes(leaves, dim, dt):
+def _build_planes(leaves, dim, dt, gates=None):
     point = np.stack([leaf.obj.pos[0] for leaf in leaves])
     normal = np.stack([leaf.obj.dir[0] for leaf in leaves])
     radius2 = np.array([
@@ -198,36 +325,53 @@ def _build_planes(leaves, dim, dt):
                       **_bounds_arrays(leaves, dt))
 
 
-def _cylinder_params(obj: Object):
-    """cylinder prepare() (cylinder.c:85-102): base, unit axis, axis span
-    [0, length] (unbounded when flag[1] marks it infinite), r^2."""
-    axis = mathnd.unitize(obj.pos[1] - obj.pos[0])
-    length = float(mathnd.dist(obj.pos[1], obj.pos[0]))
-    infinite = len(obj.flag) > 1 and obj.flag[1] != 0
-    lo = -BIG if infinite else 0.0
-    hi = BIG if infinite else length
-    return obj.pos[0], axis, lo, hi, obj.size[0] ** 2
+def _quadric_params(obj: Object):
+    """(base, unit axes, lo, hi, qc_off, is_slab) of the prepare() functions
+    (cylinder.c:85-102, orthotope.c:35-45 and 135-144, 203)."""
+    if obj.type_name == "cylinder":
+        axis = mathnd.unitize(obj.pos[1] - obj.pos[0])
+        length = float(mathnd.dist(obj.pos[1], obj.pos[0]))
+        infinite = len(obj.flag) > 1 and obj.flag[1] != 0
+        return (obj.pos[0], [axis], [-BIG if infinite else 0.0],
+                [BIG if infinite else length], obj.size[0] ** 2, False)
+    m = obj.flag[0]                                  # orthotope
+    axes = [mathnd.unitize(obj.dir[i]) for i in range(m)]
+    hi = [float(mathnd.l2norm(obj.dir[i])) + EPSILON for i in range(m)]
+    # qc -= EPSILON makes the quadratic a thin slab (orthotope.c:203)
+    return obj.pos[0], axes, [-EPSILON] * m, hi, EPSILON, True
 
 
-def _build_quadrics(leaves, dim, dt):
+def _build_quadrics(leaves, dim, dt, gates=None):
+    """Axes pad to the block's largest A with zero axes and +-BIG bounds
+    (a padded axis projects to 0, inside any bound)."""
     n = len(leaves)
+    params = [_quadric_params(leaf.obj) for leaf in leaves]
+    a_max = max(len(p[1]) for p in params)
     base = np.zeros((n, dim))
-    axes = np.zeros((n, 1, dim))
-    lo = np.zeros((n, 1))
-    hi = np.zeros((n, 1))
+    axes = np.zeros((n, a_max, dim))
+    gram = np.zeros((n, a_max, a_max))
+    lo = np.full((n, a_max), -BIG)
+    hi = np.full((n, a_max), BIG)
     qc_off = np.zeros(n)
-    gram = np.zeros((n, 1, 1))
-    for k, leaf in enumerate(leaves):
-        base[k], axes[k, 0], lo[k, 0], hi[k, 0], qc_off[k] = \
-            _cylinder_params(leaf.obj)
-        gram[k] = axes[k] @ axes[k].T
-    no_gate = np.zeros((n, 0, dim), dt)
+    is_slab = np.zeros(n)
+    for k, (b, ax, lk, hk, q, slab) in enumerate(params):
+        a = len(ax)
+        base[k] = b
+        axes[k, :a] = np.stack(ax)
+        gram[k, :a, :a] = axes[k, :a] @ axes[k, :a].T
+        lo[k, :a] = lk
+        hi[k, :a] = hk
+        qc_off[k] = q
+        is_slab[k] = 1.0 if slab else 0.0
+    gate_tlo, gate_thi, gate_plo, gate_phi = _pack_gate_tables(leaves, dim,
+                                                               gates)
     return QuadricBlock(
         base=base.astype(dt), axes=axes.astype(dt), gram=gram.astype(dt),
         lo=lo.astype(dt), hi=hi.astype(dt), qc_off=qc_off.astype(dt),
-        is_slab=np.zeros(n, dt), gate_tlo=no_gate, gate_thi=no_gate.copy(),
-        gate_plo=no_gate.copy(), gate_phi=no_gate.copy(),
-        mat_id=_mat_ids(leaves), **_bounds_arrays(leaves, dt))
+        is_slab=is_slab.astype(dt), gate_tlo=gate_tlo.astype(dt),
+        gate_thi=gate_thi.astype(dt), gate_plo=gate_plo.astype(dt),
+        gate_phi=gate_phi.astype(dt), mat_id=_mat_ids(leaves),
+        **_bounds_arrays(leaves, dt))
 
 
 _BUILDERS = {
@@ -255,7 +399,7 @@ def compile_scene(scene: Scene, dtype=np.float32) -> SceneData:
     """Compile a host Scene into the numpy SoA SceneData."""
     dt = np.dtype(dtype).type
     scene.validate()
-    leaves, materials = _flatten(scene.objects)
+    leaves, materials, kd_items = _flatten(scene.objects, scene.dim)
     if not leaves:
         raise ValueError("scene has no intersectable objects")
 
@@ -265,11 +409,12 @@ def compile_scene(scene: Scene, dtype=np.float32) -> SceneData:
             leaf.shadow_rank = rank
             rank += 1
 
+    gates = _kd_cell_gates(leaves, kd_items, scene.dim)
     blocks = {}
     for kind, (field, builder) in _BUILDERS.items():
         ls = [leaf for leaf in leaves if leaf.kind == kind]
         if ls:
-            blocks[field] = builder(ls, scene.dim, dt)
+            blocks[field] = builder(ls, scene.dim, dt, gates)
 
     transparent = np.array([1.0 if m.transparent else 0.0
                             for m in materials])
@@ -288,8 +433,9 @@ def compile_scene(scene: Scene, dtype=np.float32) -> SceneData:
 
 def scene_from_numpy(sd) -> SceneData:
     """The port's SceneData from any object with the JAX ``SceneData``
-    fields as numpy arrays (duck-typed: nothing of ``ndt_tpu.scene`` is
-    imported).  Families and features the port has no kernel for raise."""
+    fields as numpy arrays (duck-typed: nothing of the JAX package is
+    imported).  Facet and hfacet blocks raise: the port has no kernel
+    for them yet."""
     for fam in ("facets", "hfacets"):
         if getattr(sd, fam, None) is not None:
             raise NotImplementedError(
@@ -301,12 +447,6 @@ def scene_from_numpy(sd) -> SceneData:
             continue
         blocks[field] = cls(**{f.name: np.asarray(getattr(blk, f.name))
                                for f in dataclasses.fields(cls)})
-    q = blocks.get("quadrics")
-    if q is not None and (q.axes.shape[1] != 1 or q.gate_tlo.shape[1]
-                          or q.is_slab.any()):
-        raise NotImplementedError(
-            "hcylinder / orthotope quadrics and kd leaf-cell gates are not "
-            "ported yet (ROADMAP Queue 1 item 10)")
     lights = tuple(
         LightData(kind=int(lgt.kind),
                   **{f: np.asarray(getattr(lgt, f))
@@ -340,6 +480,25 @@ def _bounds_rows(blk):
                            r2[:, None].astype(np.float32)], axis=1)
 
 
+def _gate_slots(quad):
+    """(qgi [n_q] int32, qgt, qgp [slots, B, D, 2] f32): the quadric gate
+    boxes deduped into slots.  B == 0 keeps one all-zero slot, as
+    pack_params does."""
+    n_q, B, D = quad.gate_tlo.shape
+    if not B:
+        z = np.zeros((1, 1, D, 2), np.float32)
+        return np.zeros(n_q, np.int32), z, z.copy()
+    qgt = np.stack([np.asarray(quad.gate_tlo, np.float32),
+                    np.asarray(quad.gate_thi, np.float32)], axis=-1)
+    qgp = np.stack([np.asarray(quad.gate_plo, np.float32),
+                    np.asarray(quad.gate_phi, np.float32)], axis=-1)
+    both = np.concatenate([qgt.reshape(n_q, -1), qgp.reshape(n_q, -1)],
+                          axis=1)
+    _, slots, qgi = np.unique(both, axis=0, return_index=True,
+                              return_inverse=True)
+    return qgi.reshape(-1).astype(np.int32), qgt[slots], qgp[slots]
+
+
 def pack_tables(sd: SceneData) -> dict:
     """float32 / int32 numpy tables, one row per leaf, in global-id order
     (spheres, planes, quadrics) -- the values pack_params computes for
@@ -348,9 +507,15 @@ def pack_tables(sd: SceneData) -> dict:
       sph [n_sph, D+1]: center, r^2
       pln [n_pln, 2D+1]: point, normal, min(r^2, BIG)
       qbase [n_q, D], qaxes [n_q, A, D], qlo/qhi [n_q, A] (clipped to
-      +-BIG), qoff [n_q]
+      +-BIG), qoff [n_q], qslab [n_q] (1.0 = orthotope slab)
+      qgi [n_q] int32 gate slot per row; qgt / qgp [slots, B, D, 2] the
+      deduped t / position gate boxes, (lo, hi) innermost: every row of
+      one kd item carries the same box set, so byte-equal rows share a
+      slot (pack_params L1315-1339, np.unique order)
       mat / rank [N] int32; bnd [N, D+1] bounding sphere (r^2 = -1 when
-      infinite); aabb [N, 2, D] padded geometry box; props [M, 8]."""
+      infinite); aabb [N, 2, D] padded geometry box; props [M, 8]
+      inf [n_inf, 2] int32: (gid, shadow rank) of the infinite leaves,
+      rank ascending (pack_params L1462-1465)."""
     D = sd.dim
     f32 = np.float32
     mats, ranks, bnds, aabbs = [], [], [], []
@@ -386,7 +551,9 @@ def pack_tables(sd: SceneData) -> dict:
         tab.update(qbase=np.asarray(quad.base, f32),
                    qaxes=np.asarray(quad.axes, f32),
                    qlo=lo64.astype(f32), qhi=hi64.astype(f32),
-                   qoff=np.asarray(quad.qc_off, f32))
+                   qoff=np.asarray(quad.qc_off, f32),
+                   qslab=np.asarray(quad.is_slab, f32))
+        tab.update(zip(("qgi", "qgt", "qgp"), _gate_slots(quad)))
         # axis span + radial extent sqrt(qc_off) in every dim
         base64 = np.asarray(quad.base, np.float64)
         ax64 = np.asarray(quad.axes, np.float64)
@@ -401,9 +568,17 @@ def pack_tables(sd: SceneData) -> dict:
         tab.update(qbase=np.zeros((0, D), f32),
                    qaxes=np.zeros((0, 1, D), f32),
                    qlo=np.zeros((0, 1), f32), qhi=np.zeros((0, 1), f32),
-                   qoff=np.zeros(0, f32))
+                   qoff=np.zeros(0, f32), qslab=np.zeros(0, f32),
+                   qgi=np.zeros(0, np.int32),
+                   qgt=np.zeros((0, 0, D, 2), f32),
+                   qgp=np.zeros((0, 0, D, 2), f32))
+    rank = np.concatenate(ranks)
+    inf = sorted(((int(g), int(rank[g]))
+                  for g in np.nonzero(rank < NOT_INFINITE)[0]),
+                 key=lambda gr: gr[1])
     tab.update(
-        mat=np.concatenate(mats), rank=np.concatenate(ranks),
+        inf=np.asarray(inf, np.int32).reshape(-1, 2),
+        mat=np.concatenate(mats), rank=rank,
         bnd=np.concatenate(bnds), aabb=np.concatenate(aabbs),
         props=np.concatenate(
             [np.asarray(sd.color, f32), np.asarray(sd.reflect, f32),
@@ -415,14 +590,18 @@ def pack_tables(sd: SceneData) -> dict:
 @dataclasses.dataclass(frozen=True)
 class DeviceScene:
     """The kernels' view of a compiled scene: contiguous tensors on one
-    device (see pack_tables for the layouts) plus the static family sizes
-    and the host SceneData they came from (lights, background)."""
+    device (see pack_tables for the layouts) plus the static family sizes,
+    the quadric axis count A and gate box count B, the infinite leaves'
+    (gid, rank) and the host SceneData they came from (lights,
+    background)."""
 
     dim: int
     n_sph: int
     n_pln: int
     n_quad: int
     a_quad: int
+    b_gate: int
+    inf_gids: tuple
     has_transparent: bool
     sph: torch.Tensor
     pln: torch.Tensor
@@ -431,6 +610,11 @@ class DeviceScene:
     qlo: torch.Tensor
     qhi: torch.Tensor
     qoff: torch.Tensor
+    qslab: torch.Tensor
+    qgi: torch.Tensor
+    qgt: torch.Tensor
+    qgp: torch.Tensor
+    inf: torch.Tensor
     mat: torch.Tensor
     rank: torch.Tensor
     bnd: torch.Tensor
@@ -453,6 +637,9 @@ def to_device(sd: SceneData, device) -> DeviceScene:
     return DeviceScene(
         dim=sd.dim, n_sph=tab["sph"].shape[0], n_pln=tab["pln"].shape[0],
         n_quad=tab["qbase"].shape[0], a_quad=tab["qaxes"].shape[1],
+        b_gate=(0 if sd.quadrics is None
+                else sd.quadrics.gate_tlo.shape[1]),
+        inf_gids=tuple(map(tuple, tab["inf"].tolist())),
         has_transparent=sd.has_transparent, host=sd,
         **{k: torch.as_tensor(a, device=device).contiguous()
            for k, a in tab.items()})

@@ -2,16 +2,16 @@
 
 Counterpart of ``ndt_tpu/scene/model.py`` (object.h, scene.h).  All arrays
 are numpy float64, as in the C.  The type registry holds the families this
-port renders: ``sphere``, ``hplane``, ``hdisk`` and ``cylinder``; the other
-types (hcylinder, orthotope, facet, hfacet, hcube, cluster) and
-``Scene.cluster`` come with later ROADMAP items.
+port renders: ``sphere``, ``hplane``, ``hdisk``, ``cylinder`` and
+``orthotope``; the other types (hcylinder, facet, hfacet, hcube, cluster)
+and ``Scene.cluster`` come with later ROADMAP items.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 
@@ -22,13 +22,14 @@ from ndt_tpu_torch.constants import EPSILON
 @dataclasses.dataclass(frozen=True)
 class ObjectTypeInfo:
     """Parameter schema for an object type (objects/object.h:12-20):
-    how many positions, directions, sizes and flags it needs."""
+    how many positions, directions, sizes and flags it needs (a count, or
+    a function of the object for types whose counts depend on a flag)."""
 
     name: str
-    n_pos: int
-    n_dir: int
-    n_size: int
-    n_flag: int
+    n_pos: Union[int, Callable]
+    n_dir: Union[int, Callable]
+    n_size: Union[int, Callable]
+    n_flag: Union[int, Callable]
 
 
 _REGISTRY: Dict[str, ObjectTypeInfo] = {info.name: info for info in (
@@ -36,6 +37,8 @@ _REGISTRY: Dict[str, ObjectTypeInfo] = {info.name: info for info in (
     ObjectTypeInfo("hplane", 1, 1, 0, 0),      # hplane.c:16-28
     ObjectTypeInfo("hdisk", 1, 1, 1, 0),       # hdisk.c:41-53
     ObjectTypeInfo("cylinder", 2, 0, 1, 1),    # cylinder.c:58-71
+    ObjectTypeInfo("orthotope", 1,             # orthotope.c:77-92
+                   lambda o: o.flag[0] if o.flag else 1, 0, 1),
 )}
 
 
@@ -99,6 +102,7 @@ class Object:
                   ("sizes", len(self.size), info.n_size),
                   ("flags", len(self.flag), info.n_flag)]
         for what, have, need in checks:
+            need = need(self) if callable(need) else need
             if have < need:
                 raise ValueError(
                     f"object {self.name!r} ({self.type_name}): "
@@ -125,13 +129,22 @@ class Object:
                 return [(self.pos[0], self.size[0]),
                         (self.pos[1], self.size[0])]
             return []
+        if t == "orthotope":                                    # orthotope.c:94-120
+            pts = []
+            for mask in range(1 << self.flag[0]):
+                corner = self.pos[0].copy()
+                for k in range(self.flag[0]):
+                    if (mask >> k) & 1:
+                        corner = corner + self.dir[k]
+                pts.append((corner, 0.0))
+            return pts
         raise ValueError(f"no bounding rule for type {t!r}")
 
     def get_bounds(self):
         """object_get_bounds (object.c:582-603): minimal enclosing sphere
         of the bounding points (Nelder-Mead refined) + EPSILON; no points
         => radius -1 (infinite)."""
-        from ndt_tpu.utils.bounding import optimal_bounding_sphere
+        from ndt_tpu_torch.utils.bounding import optimal_bounding_sphere
 
         pts = self.bounding_points()
         if not pts:

@@ -4,9 +4,9 @@
     scene_frames(dimensions, config) -> int           (optional)
     scene_cleanup() -> None                           (optional)
 
-where ``scn`` is an ``ndt_tpu_torch.scene.Scene``.  Only ``balls`` is
-ported so far; the other scenes of ``ndt_tpu.scenes`` follow with the
-families they need (ROADMAP).
+where ``scn`` is an ``ndt_tpu_torch.scene.Scene``.  Ported so far:
+``balls``, ``anim6d`` and ``lights3d``; the other scenes of the JAX
+package follow with the families they need (ROADMAP).
 """
 
 from __future__ import annotations
@@ -15,7 +15,9 @@ import importlib
 import os
 
 _SCENES = {
+    "anim6d": "ndt_tpu_torch.scenes.anim6d",
     "balls": "ndt_tpu_torch.scenes.balls",
+    "lights3d": "ndt_tpu_torch.scenes.lights3d",
 }
 
 

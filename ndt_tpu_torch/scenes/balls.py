@@ -22,9 +22,10 @@ from __future__ import annotations
 
 import numpy as np
 
+from ndt_tpu_torch import native
 from ndt_tpu_torch.constants import EPSILON
 from ndt_tpu_torch.scene.model import LightType, Scene
-from ndt_tpu.utils.drand48 import Drand48
+from ndt_tpu_torch.utils.drand48 import Drand48
 
 BOX_SIZE = 10.0
 MAX_VELOCITY = 2.0
@@ -78,10 +79,8 @@ def _step_physics(st):
     pos, vel, radius, mass = st["pos"], st["vel"], st["radius"], st["mass"]
     scale = 1.0 / (UPDATES_PER_FRAME * FPS)
 
-    # native C++ stepper (ndt_tpu/native/physics.cc) reproduces the loop
-    # below exactly; numpy is the fallback when no compiler is available
-    from ndt_tpu import native
-
+    # the host C++ stepper (ndt_tpu_torch/native/physics.cc) reproduces
+    # the loop below exactly; numpy runs it when no compiler is available
     pos = np.ascontiguousarray(pos)
     vel = np.ascontiguousarray(vel)
     if native.step_balls(pos, vel, radius, mass, UPDATES_PER_FRAME, scale,

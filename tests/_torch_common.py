@@ -35,6 +35,28 @@ def port_balls():
     return scn
 
 
+def jax_scene(name, dim, frame=0, frames=1):
+    """The JAX package's host Scene of a registered scene, aimed."""
+    from ndt_tpu.scene import Scene
+    from ndt_tpu.scenes import get_scene
+
+    scn = Scene(name, dim)
+    get_scene(name).scene_setup(scn, dim, frame, frames)
+    scn.cam.aim()
+    return scn
+
+
+def port_scene(name, dim, frame=0, frames=1):
+    """The port's host Scene of a registered scene, aimed."""
+    from ndt_tpu_torch.scene import Scene
+    from ndt_tpu_torch.scenes import get_scene
+
+    scn = Scene(name, dim)
+    get_scene(name).scene_setup(scn, dim, frame, frames)
+    scn.cam.aim()
+    return scn
+
+
 def reset_port_scenes():
     from ndt_tpu_torch.scenes import balls
 
@@ -94,11 +116,15 @@ def port_primary_rays(device, W=W, H=H):
     return sd, o.contiguous(), v.contiguous(), live
 
 
-def seeded_scene(dim, port=False):
+def seeded_scene(dim, port=False, lit=False, flat=0):
     """A scene with random spheres, hdisks, finite cylinders and a floor,
-    one directional light (all families the port renders), built with the
-    JAX package's model, or with the port's (``port``: no JAX, as on the
-    card's machine).  Both builds compile to the same tables."""
+    one directional light, built with the JAX package's model, or with the
+    port's (``port``: no JAX, as on the card's machine).  Both builds
+    compile to the same tables.
+
+    ``lit`` adds a point and a spot light, a reflective floor and a glass
+    sphere (refract index 1.5); ``flat`` > 0 adds an orthotope slab of that
+    many axes, which makes the quadric block gated with ``flat`` axes."""
     if port:
         from ndt_tpu_torch.scene.model import LightType, Scene
     else:
@@ -126,10 +152,36 @@ def seeded_scene(dim, port=False):
     fn = np.zeros(dim)
     fn[2] = 1
     floor.add_pos(fp).add_dir(fn).set_color(0.2, 0.8, 0.3)
+    if flat:
+        slab = scn.add_object("orthotope", "slab")
+        slab.add_pos(rng.uniform(-3, 0, dim))
+        for k in range(flat):
+            e = np.zeros(dim)
+            e[k] = 5.0
+            slab.add_dir(e + rng.normal(size=dim) * 0.3)
+        slab.add_flag(flat).set_color(0.9, 0.7, 0.2)
+        slab.set_reflect(0.15, 0.15, 0.15)
     scn.ambient[:] = 0.3
     lgt = scn.add_light(LightType.DIRECTIONAL)
     lgt.dir = -np.ones(dim)
     lgt.set_color(0.5, 0.5, 0.5)
+    if lit:
+        floor.set_reflect(0.3, 0.3, 0.3)
+        glass = scn.add_object("sphere", "glass")
+        glass.add_pos(rng.uniform(-2, 2, dim)).add_size(1.8)
+        glass.set_color(0.1, 0.1, 0.1).set_reflect(0.1, 0.1, 0.1)
+        glass.transparent = True
+        glass.refract_index = 1.5
+        pt = scn.add_light(LightType.POINT)
+        pt.pos = rng.uniform(-2, 2, dim)
+        pt.pos[1] = 12.0
+        pt.set_color(60, 60, 60)
+        spot = scn.add_light(LightType.SPOT)
+        spot.pos = np.zeros(dim)
+        spot.pos[0] = 14.0
+        spot.dir = -spot.pos
+        spot.angle = 25.0
+        spot.set_color(80, 80, 40)
     return scn
 
 

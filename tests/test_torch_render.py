@@ -45,7 +45,8 @@ def test_render_frame_matches_jax_engine():
     finally:
         trace_mod.set_trace_impl("auto")
     img, depth, rays = render_frame(
-        port_balls(), RenderOptions(width=W, height=H, record_depth=True))
+        port_balls(), RenderOptions(width=W, height=H, record_depth=True),
+        device="cpu")
     assert img.shape == (H, W, 3) and img.dtype == np.float32
     assert (depth > 0).mean() > 0.5
     np.testing.assert_allclose(depth, np.asarray(jdepth), rtol=1e-5,
@@ -70,7 +71,7 @@ def test_balls_band_matches_c_golden():
     width, height, rows = 640, 480, slice(180, 260)
     scn = port_balls()
     sd = to_device(compile_scene(scn), "cpu")
-    cam = scn.cam.data()
+    cam = scn.cam.data(device="cpu")
     cam = dataclasses.replace(
         cam, dir_x=cam.dir_x * float(np.float32(width / height)))
     xx, yy = _pixel_grid(width, height, np.float32)
@@ -85,21 +86,25 @@ def test_balls_band_matches_c_golden():
 
 
 def test_port_renders_without_jax():
-    """A fresh interpreter imports the port, renders 16x12, and has loaded
-    neither jax nor flax."""
+    """A fresh interpreter imports the port, sets up balls and anim6d,
+    renders both at 16x12 on the CPU, and has loaded no module of the JAX
+    package (``ndt_tpu`` or ``ndt_tpu.*``), nor jax or flax."""
     code = (
         "import sys, numpy as np\n"
         "from ndt_tpu_torch.scene import Scene\n"
         "from ndt_tpu_torch.scenes import get_scene\n"
         "from ndt_tpu_torch.render.engine import RenderOptions, "
         "render_frame\n"
-        "scn = Scene('balls', 4)\n"
-        "get_scene('balls').scene_setup(scn, 4, 0, 1500)\n"
-        "img, _, rays = render_frame(scn, RenderOptions(width=16, "
-        "height=12))\n"
-        "assert img.shape == (12, 16, 3) and np.isfinite(img).all()\n"
-        "assert rays > 0\n"
-        "bad = [m for m in ('jax', 'flax') if m in sys.modules]\n"
+        "for name, dim, frame, frames in (('balls', 4, 0, 1500), "
+        "('anim6d', 6, 1, 4)):\n"
+        "    scn = Scene(name, dim)\n"
+        "    get_scene(name).scene_setup(scn, dim, frame, frames)\n"
+        "    img, _, rays = render_frame(scn, RenderOptions(width=16, "
+        "height=12), device='cpu')\n"
+        "    assert img.shape == (12, 16, 3) and np.isfinite(img).all()\n"
+        "    assert rays > 0\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'ndt_tpu') "
+        "or m.startswith(('jax.', 'flax.', 'ndt_tpu.'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
@@ -107,6 +112,19 @@ def test_port_renders_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_render_frame_defaults_to_the_card():
+    """With no device named, render_frame and Camera.data ask for the
+    card: without one they raise, and never render on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from ndt_tpu_torch.render.engine import RenderOptions, render_frame
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        render_frame(port_balls(), RenderOptions(width=16, height=12))
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_balls().cam.data()
 
 
 def test_render_frame_on_cuda_device_raises_without_card():
@@ -123,7 +141,8 @@ def test_render_frame_on_cuda_device_raises_without_card():
 @pytest.mark.gpu
 def test_render_frame_on_card_matches_cpu():
     """On the card: a 64x48 frame through the CUDA kernels against the
-    same frame through the CPU twins, and both launch counters rose."""
+    same frame through the CPU twins, and the launch counters of both
+    kernels of the balls path rose."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from ndt_tpu_torch.render.engine import RenderOptions, render_frame
@@ -132,7 +151,8 @@ def test_render_frame_on_card_matches_cpu():
     opts = RenderOptions(width=W, height=H)
     before = dict(launch_counts)
     gpu, _, n_gpu = render_frame(port_balls(), opts, device="cuda")
-    assert all(launch_counts[k] > before[k] for k in before)
+    assert all(launch_counts[k] > before[k]
+               for k in ("trace_closest", "shade_carry"))
     cpu, _, n_cpu = render_frame(port_balls(), opts, device="cpu")
     assert (np.abs(gpu - cpu).max(-1) > 1e-3).mean() < 0.002
     assert abs(n_gpu - n_cpu) <= 0.002 * n_cpu

@@ -138,7 +138,7 @@ def test_gen_rays_match_jax(dtype, rtol):
                           jnp.asarray(yy.ravel()), None, JOpts(), "center",
                           False, False)
     tdt = torch.float64 if dtype == np.float64 else torch.float32
-    pcd = port_balls().cam.data(dtype=tdt)
+    pcd = port_balls().cam.data(dtype=tdt, device="cpu")
     pcd = dataclasses.replace(pcd, dir_x=pcd.dir_x * float(aspect))
     po, pv = gen_rays(pcd, torch.as_tensor(xx.ravel()),
                       torch.as_tensor(yy.ravel()))
@@ -195,3 +195,16 @@ def test_linear_to_bytes_matches_jax_package(dtype):
     got = linear_to_bytes(img)
     assert got.dtype == np.uint8
     np.testing.assert_array_equal(got, ref(img))
+
+
+def test_normalize_depth_matches_jax_package():
+    """The port's depth-map normalization equals ndt_tpu.image_io's,
+    constant maps included."""
+    from ndt_tpu.image_io import normalize_depth as ref
+    from ndt_tpu_torch.image import normalize_depth
+
+    rng = np.random.default_rng(3)
+    d = np.where(rng.random((48, 64)) < 0.3, 0.0, rng.uniform(0.01, 0.2,
+                                                              (48, 64)))
+    for x in (d, d.astype(np.float32), np.zeros((4, 4)), np.full((3, 3), 2.0)):
+        np.testing.assert_array_equal(normalize_depth(x), ref(x))

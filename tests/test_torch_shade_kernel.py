@@ -124,12 +124,13 @@ def test_shade_carry_ref_seeded_scene(dim):
 
 
 def test_shade_carry_refuses_unported_light_kinds(primary_hits):
+    """Area lights ('a': per-ray sampled positions) are not ported."""
     from ndt_tpu_torch.render.kernels import shade_carry
 
     _, scn, o, v, live, (tt, mat, nrm, props) = primary_hits
     R = o.shape[0]
     args = (scn, t(o), t(v), t(tt), t(mat), t(nrm), t(props),
-            torch.zeros(6 + 10), ((None, None),), ("p",), True,
+            torch.zeros(6 + 6), ((None, None),), ("a",), True,
             torch.ones((R, 3)), torch.ones(R), torch.zeros((R, 3)), t(live))
     with pytest.raises(NotImplementedError):
         shade_carry(*args)

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of one ndt_tpu_torch frame goes, on one CUDA card.
 
-    python3 tools/profile_frame.py [--width 1920 --height 1080]
-                                   [--trace PATH]
+    python3 tools/profile_frame.py [--scene balls|anim6d]
+                                   [--width W --height H] [--trace PATH]
 
-Renders the 4-D balls scene, frame 0, through the port's render_frame on
-the card: two warm-up frames, three timed frames (host clock around
-torch.cuda.synchronize()), then one frame under torch.profiler (CPU + CUDA
-activities).  The profiled frame's functions are wrapped in
-record_function spans by this script alone (the port has no profiling
-switch).  It prints:
+Renders the 4-D balls scene, frame 0 (1920x1080 by default), or the 6-D
+anim6d scene, frame 1 (640x480 by default: the refraction-stack path),
+through the port's render_frame on the card: two warm-up frames (one for
+anim6d), three timed frames (host clock around torch.cuda.synchronize()),
+then one frame under torch.profiler (CPU + CUDA activities).  The profiled
+frame's functions are wrapped in record_function spans by this script
+alone (the port has no profiling switch).  It prints:
 
   * the card's name and power limit (nvidia-smi);
   * the unprofiled s/frame;
@@ -18,7 +19,8 @@ switch).  It prints:
     span, split by kind (the two CUDA kernels by name, copies by
     direction, the top other kernels by name);
   * host spans: calls and total ms of compile, upload, primary rays, the
-    fused step, cull_lists, the shadow culls and both kernel wrappers;
+    escalation probe, the chain and stack loops, the fused steps,
+    cull_lists, the shadow culls and the kernel wrappers;
   * the count of kernel launches in the frame;
   * one JSON line of these numbers.
 
@@ -47,22 +49,30 @@ SPANS = {
     ("engine", "to_device"): "to_device",
     ("engine", "gen_rays"): "gen_rays",
     ("engine", "trace_fused_step"): "trace_fused_step",
+    ("engine", "trace_fused"): "trace_fused",
+    ("engine", "_probe_taint_frac"): "probe",
+    ("engine", "_run_chain"): "chain loop",
+    ("engine", "_run_stack"): "stack loop",
     ("trace", "cull_lists"): "cull_lists",
     ("trace", "_shadow_culls"): "_shadow_culls",
     ("trace", "trace_closest"): "trace_closest",
     ("trace", "shade_carry"): "shade_carry",
+    ("trace", "shade_local"): "shade_local",
 }
+SCENES = {"balls": (4, 0, 1500, 1920, 1080), "anim6d": (6, 1, 4, 640, 480)}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def balls_scene():
+def make_scene(name):
     from ndt_tpu_torch.scene import Scene
     from ndt_tpu_torch.scenes import get_scene
 
-    mod = get_scene("balls")
-    scn = Scene("balls", 4)
-    mod.scene_setup(scn, 4, 0, 1500)
-    mod.scene_cleanup()
+    dim, frame, frames = SCENES[name][:3]
+    mod = get_scene(name)
+    scn = Scene(name, dim)
+    mod.scene_setup(scn, dim, frame, frames)
+    if hasattr(mod, "scene_cleanup"):
+        mod.scene_cleanup()
     scn.cam.aim()
     return scn
 
@@ -108,7 +118,7 @@ def device_kind(ev):
             if tag in name:
                 return kind
         return ev["cat"]
-    for kern in ("trace_closest_kernel", "shade_carry_kernel"):
+    for kern in ("trace_closest_kernel", "shade_kernel"):
         if kern in name:
             return kern
     return "torch: " + name.split("<")[0].split("(")[0][:60]
@@ -157,8 +167,9 @@ def analyse(trace):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--width", type=int, default=1920)
-    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--scene", choices=sorted(SCENES), default="balls")
+    ap.add_argument("--width", type=int)
+    ap.add_argument("--height", type=int)
     ap.add_argument("--trace", help="keep the chrome trace at this path")
     args = ap.parse_args()
 
@@ -178,10 +189,11 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0].strip()
     print(card)
     build.load_library()
-    W, H = args.width, args.height
+    W = args.width or SCENES[args.scene][3]
+    H = args.height or SCENES[args.scene][4]
     opts = RenderOptions(width=W, height=H)
-    scn = balls_scene()
-    for _ in range(2):
+    scn = make_scene(args.scene)
+    for _ in range(1 if args.scene == "anim6d" else 2):
         render_frame(scn, opts, device="cuda")
     torch.cuda.synchronize()
     times = []
@@ -190,7 +202,7 @@ def main():
         _, _, rays = render_frame(scn, opts, device="cuda")
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    print(f"[frame] balls 4-D f0 {W}x{H} on {card}: unprofiled s/frame "
+    print(f"[frame] {args.scene} {W}x{H} on {card}: unprofiled s/frame "
           f"{', '.join(f'{t:.4f}' for t in times)}; {rays} rays/frame")
 
     wrap_spans({"engine": engine, "trace": trace})
@@ -219,8 +231,8 @@ def main():
     for k, d in sorted(res["host_spans"].items(),
                        key=lambda kv: -kv[1]["ms"]):
         print(f"  {d['ms']:10.3f} ms {d['calls']:6d}  {k}")
-    print(json.dumps(dict(card=card, width=W, height=H, rays=rays,
-                          unprofiled_s=times, **res)))
+    print(json.dumps(dict(card=card, scene=args.scene, width=W, height=H,
+                          rays=rays, unprofiled_s=times, **res)))
     return 0
 
 
