@@ -6,7 +6,8 @@
 Phases (each prints its own lines and its seconds; any failure exits
 nonzero with no "ok" line):
   1. the card (nvidia-smi name and power limit), torch, nvcc;
-  2. the nvcc build of the kernels (one nvcc per source, in parallel);
+  2. the nvcc build of the kernels (one nvcc per source and dimension, in
+     parallel);
   3. each CUDA kernel variant against its plain PyTorch twin on the card,
      at the shapes its path gives it, then its time (CUDA events), the
      twin's, and the least time the card could take (bound_ms):
@@ -17,18 +18,36 @@ nonzero with no "ok" line):
          6-D frame 1 at 640x480 (307200 rays), primary and first bounce;
        - shade_spot (carry with spot, point, directional lights):
          lights3d 3-D at 200x150, primary and first bounce;
+       - trace_facets and shade_facets (facet rows with kd row gates, the
+         open hcylinder, three point lights walking two infinite leaves):
+         the built-in test scene 4-D at 640x480 (A = 2) and 3-D at 320x240
+         (A = 1), every shade mode;
+       - trace_early_exit (reach-sorted lists; winners' t and material
+         equal to the bit with the exit on and off): random "150" 5-D at
+         640x480 (3891 leaves: hcube faces A = 4, facets, hfacets), its
+         307200 primary rays and their first bounce;
+       - the seeded facet scene of the card tests at 4-D and 5-D (hcube
+         faces A = 3, 4, facets, hfacets) on 2^16 aimed rays, the early
+         exit forced off and on, checked only;
   4. frames on the card against the C reference's golden PNGs: balls 4-D
      f0 640x480 (RMSE < 1e-3, rows 180:260 against the CPU twins);
      anim6d 160x120 f0-f3 (rows 30:90, RMSE < 1e-3); lights3d 200x150
      colour and depth (RMSE < 1e-3) -- the spot light's path, whose
-     launches are counted;
-  5. the main paths, timed (warmed, median of 3, host clock around
-     torch.cuda.synchronize()), each driven with the launch counters set
-     to 0 just before its first timed frame and read just after: balls
-     1920x1080 (trace_closest, shade_carry) and anim6d 640x480 frame 1
-     (trace_gated, shade_escalate, shade_local, shade_point): s/frame,
+     launches are counted; the test scene 4-D 640x480 (rows 220:260 RMSE <
+     2e-3, the full frame within the JAX package's own f32 RMSE + 2e-4),
+     3-D 320x240 and random "20" 5-D rows 60:80 of 320x240 (within the
+     JAX package's f32 RMSE + 2e-4);
+  5. the main paths, timed (warmed, median of 3 -- anim6d one frame --,
+     host clock around torch.cuda.synchronize()), each driven with the
+     launch counters set to 0 just before its first timed frame and read
+     just after: balls 1920x1080 (trace_closest, shade_carry), anim6d
+     640x480 frame 1 (trace_gated, shade_escalate, shade_local,
+     shade_point), the test scene 4-D 640x480 (shade_facets) and random
+     "150" 5-D 640x480 (trace_facets, trace_early_exit): s/frame,
      rays/frame, Mrays/s, the probe's taint share, the tainted lanes and
-     the stack iterations.
+     the stack iterations; then one more frame of each of the last two
+     under torch.profiler (tools/profile_frame.py): the device's busy
+     share.
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  JAX is never imported.
 
@@ -37,8 +56,9 @@ input read once, each output written once) over 3.35 TB/s, and the f32
 operations it does on these inputs over 67 TFLOP/s (the H100 SXM's
 published peaks at 700 W).  Operations are counted from the kernel
 sources per candidate solve (an FMA counts 2), over the candidates this
-run's cull lists hold, and for a directional shadow only up to the first
-hit, where the kernel stops.
+run's cull lists hold, for a directional shadow only up to the first hit,
+where the kernel stops, and with the early exit only the candidates whose
+reach is within the lane's final t (those every walk must solve).
 """
 
 from __future__ import annotations
@@ -66,6 +86,14 @@ CARRY_TOL = 1e-5         # o' v' w' frac' where both say nxt
 GOLDEN_RMSE = 1e-3
 PIXEL_TOL, PIXEL_FRAC = 1e-3, 0.002   # card vs CPU rows
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12   # H100 SXM, published
+# the JAX package's own f32 RMSE against the C goldens, measured on the
+# CPU by scripts/jax_f32_golden_rmse.py; the port's bar is each + 2e-4
+JAX_F32_RMSE = {"test_4d_full": 0.0005276095464288421,
+                "test_3d_full": 0.0014369797951582126,
+                "random_5d_rows60_80": 0.0}
+JAX_SLACK = 2e-4
+TEST_BAND_RMSE = 2e-3    # tests/test_render.py's f32 bar, rows 220:260
+EXIT_TIE_FRAC = 1e-3     # live hit lanes whose normal comes from a t tie
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "trace_closest": ("ndt_tpu_torch/csrc/trace_closest.cu",
@@ -82,6 +110,12 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                    "ndt_tpu/render/pallas_trace.py:1044"),
     "shade_escalate": ("ndt_tpu_torch/csrc/shade.cu",
                        "ndt_tpu/render/pallas_trace.py:1112"),
+    "trace_facets": ("ndt_tpu_torch/csrc/trace_closest.cu",
+                     "ndt_tpu/render/pallas_trace.py:293"),
+    "trace_early_exit": ("ndt_tpu_torch/csrc/trace_closest.cu",
+                         "ndt_tpu/render/pallas_trace.py:701"),
+    "shade_facets": ("ndt_tpu_torch/csrc/shade.cu",
+                     "ndt_tpu/render/pallas_trace.py:938"),
 }
 
 
@@ -156,14 +190,14 @@ def card_line():
     return out[0].strip()
 
 
-def scene(name, dim, frame=0, frames=1):
+def scene(name, dim, frame=0, frames=1, config=None):
     """The port's host Scene of a registered scene, aimed."""
     from ndt_tpu_torch.scene import Scene
     from ndt_tpu_torch.scenes import get_scene
 
     mod = get_scene(name)
     scn = Scene(name, dim)
-    mod.scene_setup(scn, dim, frame, frames)
+    mod.scene_setup(scn, dim, frame, frames, config)
     if hasattr(mod, "scene_cleanup"):
         mod.scene_cleanup()
     scn.cam.aim()
@@ -242,15 +276,30 @@ def cuda_ms(fn, reps, prefill=False):
 def solve_ops(sd):
     """f32 operations of one candidate solve per family, counted from
     csrc/families.cuh (an FMA counts 2), and of a winner's normal."""
-    D, A, B = sd.dim, sd.a_quad, sd.b_gate
+    D, A = sd.dim, sd.a_quad
     NP = D * (D - 1) // 2
     dots = 2 * D - 1                        # dotc over D
+
+    def gate(B):
+        return B * (4 * D + 4)
+
     sph = D + dots + 2 * D + 3 * NP + (2 * NP - 1) + 2 + dots + 3
     pln = D + 2 * dots + 1 + 3 * D + dots
     quad = (D + 2 * A * dots + 2 * D * 2 * A + 2 * dots + 1 + 2 * A + 2 * D
             + D * 2 * A + 2 * D + 3 * NP + (2 * NP - 1) + 3 + 1 + 6 + 2
-            + 6 * A + 5 + B * (4 * D + 4))
-    return {"sph": sph, "pln": pln, "quad": quad, "normal": 2 * D + 1}
+            + 6 * A + 5 + gate(sd.b_gate))
+    fct = (4 * dots + 2 + 9 * D + 3 * dots + 1 + 8 + 3 * NP + (2 * NP - 1)
+           + 2 + 3 * dots + 3 * (5 * dots + 14) + gate(sd.b_fct))
+    hf = (2 * (D - 1) + 4 * dots + 10 + 2 + 6 + 14 + 10 + 5 * dots + 8
+          + gate(sd.b_hf))
+    return {"sph": sph, "pln": pln, "quad": quad, "fct": fct, "hf": hf,
+            "normal": 2 * D + 1}
+
+
+def _fam_ops(sd):
+    """Solve operations per cull-count column (sph pln quad fct hf)."""
+    ops = solve_ops(sd)
+    return [ops[k] for k in ("sph", "pln", "quad", "fct", "hf")]
 
 
 def walk_ops(sd, lists, counts):
@@ -258,10 +307,30 @@ def walk_ops(sd, lists, counts):
     tile's RT rays (the kernel runs every lane of a listed tile)."""
     from ndt_tpu_torch.render.kernels import RT
 
-    ops = solve_ops(sd)
     c = counts.double()
-    return float(RT * (c[:, 0] * ops["sph"] + c[:, 1] * ops["pln"]
-                       + c[:, 2] * ops["quad"]).sum())
+    return float(RT * sum(c[:, col] * op
+                          for col, op in enumerate(_fam_ops(sd))).sum())
+
+
+def exit_walk_ops(sd, counts, reach, t, live):
+    """Operations of the early-exit walk that every lane needs: the
+    candidates whose reach is within the lane's final t (the walk solves
+    each of them whatever the order), summed over the live lanes."""
+    from ndt_tpu_torch.render.kernels import RT, _families
+
+    ops = _fam_ops(sd)
+    tt = t.reshape(-1, RT)
+    lv = live.reshape(-1, RT)
+    total = 0.0
+    for _, col, off, _ in _families(sd):
+        k = counts[:, col].tolist()
+        for tile in range(reach.shape[0]):
+            r = reach[tile, off:off + k[tile]]
+            if not r.numel():
+                continue
+            need = (r[None, :] <= tt[tile][:, None]) & lv[tile][:, None]
+            total += float(need.sum()) * ops[col]
+    return total
 
 
 def anyhit_ops(sd, lists, counts, so, sv):
@@ -278,17 +347,18 @@ def anyhit_ops(sd, lists, counts, so, sv):
     R = lists.shape[0] * K.RT
     for r0, r1, tiles in K._ray_chunks(R):
         nt = len(tiles)
+        tiles = tiles.to(lists.device)
         oc = [x if x.dim() == 0 else x[r0:r1].reshape(nt, K.RT, 1)
               for x in so]
         vc = [x if x.dim() == 0 else x[r0:r1].reshape(nt, K.RT, 1)
               for x in sv]
         costs, hits = [], []
         for fam, col, off, _ in K._families(sd):
-            rows, valid = K._tile_candidates(sd, lists, counts,
-                                             tiles.to(lists.device), col,
-                                             off)
-            if rows is None:
+            k_max = int(counts[tiles, col].max())
+            if not k_max:
                 continue
+            rows, valid = K._tile_candidates(lists, counts, tiles, col, off,
+                                             0, k_max)
             t, _ = K._eval(sd, fam, rows, oc, vc, False)
             costs.append((valid * ops[fam]).expand(t.shape).double())
             hits.append(valid & (t < BIG * 0.5))
@@ -345,7 +415,8 @@ def bound(nbytes, ops):
 
 def table_bytes(sd):
     return call_bytes(sd.sph, sd.pln, sd.qbase, sd.qaxes, sd.qlo, sd.qhi,
-                      sd.qoff, sd.qslab, sd.qgi, sd.qgt, sd.qgp, sd.mat,
+                      sd.qoff, sd.qslab, sd.qgi, sd.qgt, sd.qgp, sd.fct,
+                      sd.fgt, sd.fgp, sd.hf, sd.hgt, sd.hgp, sd.mat,
                       sd.rank, sd.inf, sd.props)
 
 
@@ -403,10 +474,38 @@ def compare_local(a, b, hit):
                                        f" {bad:.6f}")
 
 
+def compare_exit(on, off, live):
+    """The early exit against the full walk, both on the card: t and
+    material equal to the bit on every live lane; the normal too, but for
+    lanes where two candidates of one material tie in t (hcube faces at an
+    edge), whose winner the walk order picks."""
+    t_ok = bool((on[0] == off[0])[live].all())
+    m_ok = bool((on[1] == off[1])[live].all())
+    hit = live & (off[0] < 5e29)
+    ties = (on[2] != off[2]).any(1)[hit].float().mean().item() \
+        if hit.any() else 0.0
+    ok = t_ok and m_ok and ties < EXIT_TIE_FRAC
+    return ok, (f"exit on vs off: t equal {t_ok}, mat equal {m_ok}, normal "
+                f"ties {ties:.2e} of hit lanes (bar {EXIT_TIE_FRAC})")
+
+
+def trace_args(K, sd, o, v, live, aux):
+    """The trace kernel's arguments as the main path builds them: with the
+    reach-sorted lists, reach and live when the scene takes the early
+    exit (kernels.use_early_exit)."""
+    if K.use_early_exit(sd):
+        lists, counts, reach = K.cull_lists(sd, o, v, live=live,
+                                            want_reach=True)
+        return (sd, o, v, aux, lists, counts, reach, live)
+    return (sd, o, v, aux) + K.cull_lists(sd, o, v, live=live)
+
+
 def check_path(torch, K, sd, o, v, live, variants, results, label):
     """Each variant against its twin on the primary rays and their first
-    bounce; on the primary rays also its time, the twin's and the bound.
-    variants: kernel name -> shade mode (None for the trace)."""
+    bounce; on the primary rays also, for a variant named in ``results``,
+    its time, the twin's and the bound (other names are checked only).
+    variants: name -> shade mode ("carry", "escalate", "local"), or None
+    for the trace."""
     from ndt_tpu_torch.render.trace import _shadow_culls, fused_light_info
 
     R, D = o.shape
@@ -419,14 +518,20 @@ def check_path(torch, K, sd, o, v, live, variants, results, label):
                                 rng.uniform(0, 0.5, (R, 3))))
     ok_all = True
     for stage in ("primary", "first bounce"):
-        lists, counts = K.cull_lists(sd, o, v, live=live)
-        tr_args = (sd, o, v, aux, lists, counts)
+        tr_args = trace_args(K, sd, o, v, live, aux)
         got = K.trace_closest(*tr_args)
         ref = K.trace_closest_ref(*tr_args)
-        tname = "trace_gated" if K.is_gated(sd) else "trace_closest"
         ok, err, msg = compare_trace(got, ref, live)
-        print(f"[kernels] {label} {tname} {stage} R={R} live="
-              f"{live.sum().item()}: {msg} -> {'PASS' if ok else 'FAIL'}")
+        exit_ = len(tr_args) > 6
+        if exit_:
+            off = K.trace_closest(*(tr_args[:4] + K.cull_lists(
+                sd, o, v, live=live)))
+            eok, emsg = compare_exit(got, off, live)
+            ok &= eok
+            msg += "; " + emsg
+        print(f"[kernels] {label} trace{' (early exit)' if exit_ else ''} "
+              f"{stage} R={R} live={live.sum().item()}: {msg} -> "
+              f"{'PASS' if ok else 'FAIL'}")
         ok_all &= ok
         t, mat, nrm, props = got
         culls = _shadow_culls(sd, kinds, lvec, o, v, t, live)
@@ -454,21 +559,25 @@ def check_path(torch, K, sd, o, v, live, variants, results, label):
             ok_all &= sok
             runs[name] = (kern, twin, args, serr, mode)
         if stage == "primary":
-            if tname in variants:
-                runs[tname] = (K.trace_closest, K.trace_closest_ref, tr_args,
-                               err, None)
+            for name, mode in variants.items():
+                if mode is None:
+                    runs[name] = (K.trace_closest, K.trace_closest_ref,
+                                  tr_args, err, None)
             for name, (kern, twin, args, err_, mode) in runs.items():
+                if name not in results:
+                    continue
                 r = results[name]
                 r["max_abs_err"] = err_
                 r["ms"] = cuda_ms(lambda: kern(*args), 20, prefill=True)
-                r["plain_ms"] = cuda_ms(lambda: twin(*args), 5)
+                r["plain_ms"] = cuda_ms(lambda: twin(*args), 3)
                 r["library_ms"] = None   # no one PyTorch call computes it
                 if mode is None:
-                    nbytes = (call_bytes(o, v, aux, lists, counts)
-                              + table_bytes(sd) + call_bytes(*got))
-                    ops = (walk_ops(sd, lists, counts)
-                           + float(hit.sum()) * (solve_ops(sd)["sph"]
-                                                 + solve_ops(sd)["normal"]))
+                    nbytes = (call_bytes(*args[1:]) + table_bytes(sd)
+                              + call_bytes(*got))
+                    ops = (exit_walk_ops(sd, args[5], args[6], t, live)
+                           if exit_ else walk_ops(sd, args[4], args[5]))
+                    ops += float(hit.sum()) * (solve_ops(sd)["sph"]
+                                               + solve_ops(sd)["normal"])
                 else:
                     # local: colour [R, 3]; carry: o' v' w' frac' colour'
                     # nxt (and taint)
@@ -485,12 +594,38 @@ def check_path(torch, K, sd, o, v, live, variants, results, label):
                 print(f"[kernels] {label} {name} at {R} primary rays: kernel "
                       f"{r['ms']:.4f} ms device time (mean of 20, queue "
                       f"pre-filled), twin {r['plain_ms']:.3f} ms (mean of "
-                      f"5), bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                      f"3), bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
                       f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
+                if name == "trace_early_exit":
+                    full = tr_args[:4] + K.cull_lists(sd, o, v, live=live)
+                    ms = cuda_ms(lambda: K.trace_closest(*full), 20,
+                                 prefill=True)
+                    print(f"[kernels] {label} the same trace without the "
+                          f"early exit (gid-ordered lists): kernel {ms:.4f} "
+                          f"ms device time (mean of 20, queue pre-filled)")
             o2, v2, _, _, _, nxt = K.shade_carry_ref(
                 *(base + (w, frac, color, live)))
             o, v, live = o2.contiguous(), v2.contiguous(), nxt
     return ok_all
+
+
+def facet_batch(dim):
+    """(DeviceScene, o, v, live) on the card: the seeded lit scene of the
+    card tests at D = dim with facets, an hfacet and an hcube (faces up to
+    A = D - 1), and 2^16 rays aimed at its leaves, 90% live
+    (tests/_torch_common.py, which imports no JAX)."""
+    import torch
+
+    from ndt_tpu_torch.scene import compile_scene, to_device
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_common import aimed_rays, seeded_scene
+
+    sd = to_device(compile_scene(seeded_scene(dim, port=True, lit=True,
+                                              facets=True)), "cuda")
+    o, v, live = aimed_rays(sd.host, [20.0] + [0.0] * (dim - 1), seed=dim,
+                            R=1 << 16)
+    return sd, *(torch.as_tensor(x, device="cuda") for x in (o, v, live))
 
 
 def phase_kernels(torch, K, results):
@@ -507,7 +642,42 @@ def phase_kernels(torch, K, results):
                      results, "anim6d 640x480")
     ok &= check_path(torch, K, *primary_rays(scene("lights3d", 3), 200, 150),
                      {"shade_spot": "carry"}, results, "lights3d 200x150")
+    ok &= check_path(torch, K, *primary_rays(scene("test", 4), 640, 480),
+                     {"trace_facets": None, "shade_facets": "escalate",
+                      "shade (carry)": "carry", "shade (local)": "local"},
+                     results, "test 4-D 640x480")
+    ok &= check_path(torch, K, *primary_rays(scene("test", 3), 320, 240),
+                     {"trace": None, "shade (escalate)": "escalate",
+                      "shade (local)": "local"}, results, "test 3-D 320x240")
+    ok &= check_path(torch, K, *quiet(primary_rays,
+                                      scene("random", 5, config="150"),
+                                      640, 480),
+                     {"trace_early_exit": None, "shade (escalate)":
+                      "escalate", "shade (local)": "local"}, results,
+                     "random150 5-D 640x480")
+    ee_min = K.EE_MIN_OBJECTS
+    for dim in (4, 5):
+        sd, o, v, live = facet_batch(dim)
+        for exit_ in (False, True):
+            K.EE_MIN_OBJECTS = 0 if exit_ else ee_min
+            ok &= check_path(torch, K, sd, o, v, live,
+                             {"trace": None, "shade (carry)": "carry",
+                              "shade (local)": "local"}, results,
+                             f"facet scene {dim}-D (A = {sd.a_quad}, "
+                             f"{sd.n_total} leaves, exit "
+                             f"{'on' if exit_ else 'off'})")
+        K.EE_MIN_OBJECTS = ee_min
     return ok
+
+
+def quiet(fn, *a, **k):
+    """fn with the gate-union RuntimeWarning of dense scenes (some kd
+    items span more than _GATE_MAX cells) silenced."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        return fn(*a, **k)
 
 
 # --------------------------------------------------------------------------
@@ -575,6 +745,34 @@ def phase_golden(torch, K, card, results):
           f"{dep:.3e} (bar {GOLDEN_RMSE}), rays {rays}, launches "
           f"{ {k: n for k, n in counts.items() if n} } -> "
           f"{'PASS' if lok else 'FAIL'}")
+
+    # the built-in test scene and random "20": the JAX package's own f32
+    # RMSE (scripts/jax_f32_golden_rmse.py) + JAX_SLACK
+    for key, name, dim, config, W, H, rows, gold in (
+            ("test_4d_full", "test", 4, None, 640, 480, slice(0, 480),
+             "test_4d_640x480_f0.png"),
+            ("test_3d_full", "test", 3, None, 320, 240, slice(0, 240),
+             "test_3d_320x240_f0.png"),
+            ("random_5d_rows60_80", "random", 5, "20", 320, 240,
+             slice(60, 80), "random_5d_320x240_f0.png")):
+        img, _, rays = quiet(render_frame, scene(name, dim, config=config),
+                             RenderOptions(width=W, height=H))
+        torch.cuda.synchronize()
+        mine, ref = linear_to_bytes(img) / 255.0, golden(gold)
+        err = rmse(mine[rows], ref[rows])
+        bar = JAX_F32_RMSE[key] + JAX_SLACK
+        fok = bool(np.isfinite(img).all()) and err <= bar
+        extra = ""
+        if key == "test_4d_full":
+            band = rmse(mine[220:260], ref[220:260])
+            fok &= band < TEST_BAND_RMSE
+            extra = (f"; rows 220:260 RMSE {band:.3e} (bar "
+                     f"{TEST_BAND_RMSE})")
+        ok &= fok
+        print(f"[golden] {name} {dim}-D {W}x{H} rows {rows.start}:"
+              f"{rows.stop}: RMSE {err:.3e} (bar {bar:.3e}: the JAX "
+              f"package's f32 {JAX_F32_RMSE[key]:.3e} + {JAX_SLACK}){extra}"
+              f", rays {rays} -> {'PASS' if fok else 'FAIL'}")
     return ok
 
 
@@ -618,25 +816,28 @@ def engine_counters(engine):
             setattr(engine, n, f)
 
 
-def timed_frames(torch, K, scn, opts, names, results, label, card):
-    """Warm-up, then three frames; the counters are set to 0 right before
-    the first timed frame and read right after it."""
+def timed_frames(torch, K, scn, opts, names, results, label, card,
+                 reps=3, also=()):
+    """Warm-up, then ``reps`` frames; the counters are set to 0 right
+    before the first timed frame and read right after it.  ``names``: the
+    kernels whose launches this path records; ``also``: kernels it must
+    launch too."""
     from ndt_tpu_torch.render import engine
 
-    engine.render_frame(scn, opts)                    # warm-up
+    quiet(engine.render_frame, scn, opts)             # warm-up
     torch.cuda.synchronize()
     times = []
-    for i in range(3):
+    for i in range(reps):
         if i == 0:
             K.reset_launch_counts()
             with engine_counters(engine) as counts:
                 t0 = time.perf_counter()
-                img, _, rays = engine.render_frame(scn, opts)
+                img, _, rays = quiet(engine.render_frame, scn, opts)
                 torch.cuda.synchronize()
-            launches = {k: K.launch_counts[k] for k in names}
+            launches = {k: K.launch_counts[k] for k in (*names, *also)}
         else:
             t0 = time.perf_counter()
-            img, _, rays = engine.render_frame(scn, opts)
+            img, _, rays = quiet(engine.render_frame, scn, opts)
             torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     for k in names:
@@ -653,10 +854,28 @@ def timed_frames(torch, K, scn, opts, names, results, label, card):
                  f"{counts['chain_iters']}, stack iterations "
                  f"{counts['stack_iters']}")
     print(f"[frame] {label} {opts.width}x{opts.height} on {card}: {s:.4f} "
-          f"s/frame (median of 3: {', '.join(f'{x:.4f}' for x in times)}), "
-          f"{rays} rays/frame, {rays / s / 1e6:.2f} Mrays/s; launches "
-          f"{launches} in the first timed frame{extra}")
+          f"s/frame (median of {reps}: "
+          f"{', '.join(f'{x:.4f}' for x in times)}), {rays} rays/frame, "
+          f"{rays / s / 1e6:.2f} Mrays/s; launches {launches} in the first "
+          f"timed frame{extra}")
     return ok
+
+
+def busy_share(scn, opts, label):
+    """One more frame under torch.profiler (tools/profile_frame.py): the
+    device's busy share of the frame's span and the kernel launches."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import profile_frame
+
+    res = quiet(profile_frame.profile_frame, scn, opts)
+    kinds = sorted(res["device_by_kind"].items(), key=lambda kv: -kv[1]["ms"])
+    print(f"[profile] {label} {opts.width}x{opts.height}: frame span "
+          f"{res['span_ms']:.3f} ms under the profiler, device busy "
+          f"{res['busy_ms']:.3f} ms = {100 * res['busy_share']:.1f}% busy; "
+          f"{res['kernel_launches']} kernel launches; top device time "
+          f"{[(k, round(d['ms'], 3), d['n']) for k, d in kinds[:4]]}; host "
+          f"spans {[(k, round(d['ms'], 1), d['calls']) for k, d in sorted(res['host_spans'].items(), key=lambda kv: -kv[1]['ms'])[:6]]}")
+    return res["busy_share"] > 0
 
 
 def phase_frames(torch, K, card, results):
@@ -669,7 +888,20 @@ def phase_frames(torch, K, card, results):
     ok &= timed_frames(torch, K, scene("anim6d", 6, 1, 4),
                        RenderOptions(width=640, height=480),
                        ("trace_gated", "shade_escalate", "shade_local",
-                        "shade_point"), results, "anim6d 6-D f1", card)
+                        "shade_point"), results, "anim6d 6-D f1", card,
+                       reps=1)
+    opts = RenderOptions(width=640, height=480)
+    test4 = scene("test", 4)
+    ok &= timed_frames(torch, K, test4, opts, ("shade_facets",), results,
+                       "test 4-D f0", card,
+                       also=("trace_gated", "trace_facets", "shade_point"))
+    ok &= busy_share(test4, opts, "test 4-D f0")
+    r150 = quiet(scene, "random", 5, config="150")
+    ok &= timed_frames(torch, K, r150, opts,
+                       ("trace_facets", "trace_early_exit"), results,
+                       "random150 5-D f0", card,
+                       also=("trace_gated", "shade_facets", "shade_point"))
+    ok &= busy_share(r150, opts, "random150 5-D f0")
     return ok
 
 

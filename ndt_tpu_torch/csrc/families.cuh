@@ -1,8 +1,9 @@
 // Family solves shared by trace_closest.cu and shade.cu.
 //
 // The f32 formulas of ndt_tpu/render/pallas_trace.py (_sphere_eval L108,
-// _plane_eval L136, _quadric_eval L157), in the same operation order, for
-// one ray per thread with its D components in registers.  Sphere and
+// _plane_eval L136, _quadric_eval L157, _row_gate_pierce L264, _facet_eval
+// L293, _hfacet_eval L377), in the same operation order, for one ray per
+// thread with its D components in registers.  Sphere and
 // quadric keep the hit-local re-solve: the coarse closest-approach anchor
 // t_hat moves the origin to the object, where the f32 discriminant is exact
 // enough for silhouettes, thin cylinders and the orthotope's EPSILON shell.
@@ -34,14 +35,24 @@ struct NdtTables {
   const float* qgt;    // [slots, B, D, 2] kd-cell t boxes (lo, hi)
   const float* qgp;    // [slots, B, D, 2] kd-cell position boxes
   const int* qgi;      // [n_quad] gate slot of each quadric
+  const float* fct;    // [n_fct, 10D+11] facet rows (pack_tables)
+  const float* fgt;    // [n_fct, b_fct, D, 2] facet kd-cell t boxes
+  const float* fgp;    // [n_fct, b_fct, D, 2] facet position boxes
+  const float* hf;     // [n_hf, 7D+12] hfacet rows (pack_tables)
+  const float* hgt;    // [n_hf, b_hf, D, 2] hfacet kd-cell t boxes
+  const float* hgp;    // [n_hf, b_hf, D, 2] hfacet position boxes
   const int* mat;      // [N] material id per global id
   const int* rank;     // [N] shadow scan rank, 1 << 30 when finite
   const int* inf;      // [n_inf, 2] (gid, rank) of the infinite leaves
   int n_sph;
   int n_pln;
   int n_quad;
+  int n_fct;
+  int n_hf;
   int a_quad;
   int b_gate;          // gate boxes per slot; 0 = no quadric is gated
+  int b_fct;           // gate boxes per facet; 0 = none gated
+  int b_hf;            // gate boxes per hfacet; 0 = none gated
   int n_inf;
   int dim;
 };
@@ -52,6 +63,8 @@ constexpr float EPS = 1e-4f;   // ndt_tpu_torch/constants.py EPSILON
 // EPSILON2 as the reference rounds it: the f64 square, then f32
 constexpr float EPS2 = (float)(1e-4 * 1e-4);
 constexpr float BIG = 1e30f;   // "no hit" distance
+// 1 + EPSILON as the reference rounds it: the f64 sum, then f32
+constexpr float ONE_EPS = (float)(1.0 + 1e-4);
 constexpr int N_FAMS = 5;      // cull-count columns: sph pln quad fct hf
 constexpr int N_PROPS = 8;     // color3, reflect3, transparent, ior
 constexpr int NOTINF = (1 << 30) - 1;  // shadow rank cut: finite leaves
@@ -162,30 +175,31 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   return a != a ? a : (b != b ? b : fminf(a, b));
 }
 
-// kd leaf-cell gate (pallas_trace.py L219-250): does the ray pierce one of
-// the B t boxes of gate slot gi, position-checked in near-parallel dims?
+// kd leaf-cell gate (pallas_trace.py L219-250, _row_gate_pierce L264-290):
+// does the ray pierce one of the B t boxes gt [B, D, 2] (lo, hi), each
+// position-checked against gp in near-parallel dims?
 template <int D>
-__device__ __forceinline__ bool gate_pierced(const NdtTables& tb, int gi,
-                                             const float (&o)[D],
+__device__ __forceinline__ bool gate_pierced(const float* __restrict__ gt,
+                                             const float* __restrict__ gp,
+                                             int B, const float (&o)[D],
                                              const float (&v)[D]) {
-  const int B = tb.b_gate;
   bool pierced = false;
   for (int b = 0; b < B; ++b) {
     float tl = -BIG, tu = BIG;
     bool ok_pos = true;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      const int w = ((gi * B + b) * D + d) * 2;
+      const int w = (b * D + d) * 2;
       const bool usable = fabsf(v[d]) >= EPS2;
       const float safe_v = usable ? v[d] : 1.f;
-      const float t_a = (__ldg(tb.qgt + w) - o[d]) / safe_v;
-      const float t_b = (__ldg(tb.qgt + w + 1) - o[d]) / safe_v;
+      const float t_a = (__ldg(gt + w) - o[d]) / safe_v;
+      const float t_b = (__ldg(gt + w + 1) - o[d]) / safe_v;
       if (usable) {
         tl = nan_max(tl, nan_min(t_a, t_b));
         tu = nan_min(tu, nan_max(t_a, t_b));
       }
-      ok_pos = ok_pos && (usable || (o[d] >= __ldg(tb.qgp + w) - EPS &&
-                                     o[d] <= __ldg(tb.qgp + w + 1) + EPS));
+      ok_pos = ok_pos && (usable || (o[d] >= __ldg(gp + w) - EPS &&
+                                     o[d] <= __ldg(gp + w + 1) + EPS));
     }
     pierced = pierced ||
               (ok_pos && tu + EPS >= -EPS && tl - EPS <= tu + EPS);
@@ -287,7 +301,10 @@ __device__ __forceinline__ float quadric_eval(const NdtTables& tb, int n,
   const bool ok_f = is_slab && usable && t_f >= EPS && fabsf(surf) <= EPS &&
                     ends(d_min);
   float t = ok2 ? t_near : (ok1 ? t_far : (ok_f ? t_f : BIG));
-  if (tb.b_gate && !gate_pierced<D>(tb, __ldg(tb.qgi + n), o, v)) t = BIG;
+  if (tb.b_gate) {
+    const size_t g = (size_t)__ldg(tb.qgi + n) * tb.b_gate * D * 2;
+    if (!gate_pierced<D>(tb.qgt + g, tb.qgp + g, tb.b_gate, o, v)) t = BIG;
+  }
   if (NORMAL) {
     const float delta = ok2 ? d_near : (ok1 ? d_far : d_min);
 #pragma unroll
@@ -296,4 +313,228 @@ __device__ __forceinline__ float quadric_eval(const NdtTables& tb, int n,
   return t;
 }
 
+// Triangle facet (facet.c:166-269): the plane closest approach with the
+// EPSILON surface-distance acceptance (the Lagrange gram sum keeps |surf|
+// f32-stable at the minimum), the vertex-angle inside test
+// (facet.c:149-164; a degenerate angle passes) and the kd leaf-cell gate.
+// Row layout: b0[D] b1[D] base[D] bb0 bb1 v0..v2[3D] e0..e2[3D] vdote[3]
+// edote[3] cosang[3] normal[D].  The normal is dir[0] (facet.c:257).
+template <int D, bool NORMAL>
+__device__ __forceinline__ float facet_eval(const NdtTables& tb, int n,
+                                            const float (&o)[D],
+                                            const float (&v)[D],
+                                            float (&nrm)[D]) {
+  const float* __restrict__ row = tb.fct + (size_t)n * (10 * D + 11);
+  float b0[D], b1[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    b0[d] = __ldg(row + d);
+    b1[d] = __ldg(row + D + d);
+  }
+  const float a0 = dotc<D>(v, b0), a1 = dotc<D>(v, b1);
+  const float c0 = dotc<D>(o, b0) - __ldg(row + 3 * D);
+  const float c1 = dotc<D>(o, b1) - __ldg(row + 3 * D + 1);
+  float vp[D], xp[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    vp[d] = fma_(a0, b0[d], a1 * b1[d]) - v[d];
+    xp[d] = fma_(c0, b0[d], c1 * b1[d]) - (o[d] - __ldg(row + 2 * D + d));
+  }
+  const float qa = dotc<D>(vp, vp);
+  const float qb = 2.f * dotc<D>(vp, xp);
+  const float qc = dotc<D>(xp, xp);
+  const bool small_qa = fabsf(qa) < EPS;
+  const bool lin = fabsf(qb) < EPS && qb != 0.f;
+  const float t = small_qa ? (lin ? -qc / qb : -1.f) : -qb / (2.f * qa);
+  constexpr int NP = D * (D - 1) / 2;
+  float m[NP];
+  int k = 0;
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+#pragma unroll
+    for (int b = a + 1; b < D; ++b, ++k)
+      m[k] = fma_(vp[a], xp[b], -(vp[b] * xp[a]));
+  }
+  const float surf =
+      small_qa ? fma_(qa * t, t, qb * t) + qc : dotc<NP>(m, m) / qa;
+  bool ok = t >= EPS && fabsf(surf) <= EPS;
+  const float oo = dotc<D>(o, o), vo = dotc<D>(v, o), vv = dotc<D>(v, v);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float vi[D], ei[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      vi[d] = __ldg(row + 3 * D + 2 + i * D + d);
+      ei[d] = __ldg(row + 6 * D + 2 + i * D + d);
+    }
+    const float u_dot_e =
+        fma_(t, dotc<D>(v, ei), dotc<D>(o, ei) - __ldg(row + 9 * D + 2 + i));
+    const float u2 =
+        fma_(t * t, vv,
+             fma_(2.f * t, vo - dotc<D>(v, vi),
+                  (oo - 2.f * dotc<D>(o, vi)) + dotc<D>(vi, vi)));
+    const float div =
+        sqrtf(nan_max(u2, 0.f) * __ldg(row + 9 * D + 5 + i));
+    const float cos_q = u_dot_e / (div > EPS ? div : 1.f);
+    ok = ok && (div <= EPS || cos_q >= __ldg(row + 9 * D + 8 + i));
+  }
+  if (ok && tb.b_fct) {
+    const size_t g = (size_t)n * tb.b_fct * D * 2;
+    ok = gate_pierced<D>(tb.fgt + g, tb.fgp + g, tb.b_fct, o, v);
+  }
+  if (NORMAL) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) nrm[d] = __ldg(row + 9 * D + 11 + d);
+  }
+  return ok ? t : BIG;
+}
+
+// hfacet (hfacet.c:211-310): the ones-contraction linear solve, the 2-D
+// barycentric inside test, the per-ray bounding-sphere gate the C's
+// trace() cull gives it (bounding.c:34-85) and the kd leaf-cell gate.  Row
+// layout: v0[D] ue0[D] ep[D] sum_ue0 sum_ep v0_ue0 v0_ep v0_sum x2 y2 x3 y3
+// inv_den use_normals vn0..vn2[3D] b_center[D] b_r2.  The normal
+// interpolates the vertex normals where flag[0] is set, else points from
+// the plane's closest point to the observer (hfacet.c:279-297).
+template <int D, bool NORMAL>
+__device__ __forceinline__ float hfacet_eval(const NdtTables& tb, int n,
+                                             const float (&o)[D],
+                                             const float (&v)[D],
+                                             float (&nrm)[D]) {
+  const float* __restrict__ row = tb.hf + (size_t)n * (7 * D + 12);
+  float ue0[D], ep[D], bc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    ue0[d] = __ldg(row + D + d);
+    ep[d] = __ldg(row + 2 * D + d);
+    bc[d] = __ldg(row + 6 * D + 11 + d);
+  }
+  const float* __restrict__ s = row + 3 * D;
+  const float sum_ue0 = __ldg(s), sum_ep = __ldg(s + 1);
+  const float x2 = __ldg(s + 5), y2 = __ldg(s + 6);
+  const float x3 = __ldg(s + 7), y3 = __ldg(s + 8);
+  const float inv_den = __ldg(s + 9);
+  float sv = v[0], so = o[0];
+#pragma unroll
+  for (int d = 1; d < D; ++d) {
+    sv = sv + v[d];
+    so = so + o[d];
+  }
+  const float v_ue0 = dotc<D>(v, ue0), v_ep = dotc<D>(v, ep);
+  const float rv = fma_(v_ue0, sum_ue0, v_ep * sum_ep) - sv;
+  const float x_ue0 = dotc<D>(o, ue0) - __ldg(s + 2);
+  const float x_ep = dotc<D>(o, ep) - __ldg(s + 3);
+  const float qv = fma_(x_ue0, sum_ue0, x_ep * sum_ep) - (so - __ldg(s + 4));
+  bool ok = fabsf(rv) >= EPS;
+  const float t = -qv / (ok ? rv : 1.f);
+  ok = ok && t > EPS;
+  const float dx = fma_(t, v_ue0, x_ue0) - x3;
+  const float dy = fma_(t, v_ep, x_ep) - y3;
+  const float l1 = fma_(y2 - y3, dx, (x3 - x2) * dy) * inv_den;
+  const float l2 = fma_(y3, dx, (0.f - x3) * dy) * inv_den;
+  const float l3 = (1.f - l1) - l2;
+  ok = ok && l1 >= -EPS && l1 <= ONE_EPS && l2 >= -EPS && l2 <= ONE_EPS &&
+       l3 >= -EPS && l3 <= ONE_EPS;
+  // the per-ray bounding-sphere gate: the ones solve enforces one of the
+  // D-2 plane constraints, so hits far off the plane are culled as the C's
+  // trace() culls them; voc * voc is used twice, so the reference rounds
+  // it on its own
+  const float oc2 = (dotc<D>(o, o) - 2.f * dotc<D>(o, bc)) + dotc<D>(bc, bc);
+  const float voc = dotc<D>(v, o) - dotc<D>(v, bc);
+  const float voc2 = voc * voc;
+  const float desc = (voc2 - oc2) + __ldg(row + 7 * D + 11);
+  ok = ok && desc >= 0.f && !(voc > 0.f && voc2 > desc);
+  if (ok && tb.b_hf) {
+    const size_t g = (size_t)n * tb.b_hf * D * 2;
+    ok = gate_pierced<D>(tb.hgt + g, tb.hgp + g, tb.b_hf, o, v);
+  }
+  if (NORMAL) {
+    float od[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) od[d] = o[d] - __ldg(row + d);
+    const float d0_ue0 = dotc<D>(od, ue0), d0_ep = dotc<D>(od, ep);
+    const bool use_n = __ldg(s + 10) > 0.f;
+    const float lam[3] = {l1, l2, l3};
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float vn3[3] = {__ldg(s + 11 + d), __ldg(s + 11 + D + d),
+                            __ldg(s + 11 + 2 * D + d)};
+      const float on =
+          fma_(ep[d], d0_ep, fma_(ue0[d], d0_ue0, __ldg(row + d)));
+      nrm[d] = use_n ? dotc<3>(vn3, lam) : o[d] - on;
+    }
+  }
+  return ok ? t : BIG;
+}
+
+// Rows of family f (0 sphere, 1 plane, 2 quadric, 3 facet, 4 hfacet): the
+// order of the global ids and of the cull-count columns.
+__device__ __forceinline__ int fam_size(const NdtTables& tb, int f) {
+  return f == 0 ? tb.n_sph
+       : f == 1 ? tb.n_pln
+       : f == 2 ? tb.n_quad
+       : f == 3 ? tb.n_fct
+                : tb.n_hf;
+}
+
+// The solve of row n of family f; with NORMAL also its normal.
+template <int D, int A, bool NORMAL>
+__device__ __forceinline__ float eval_fam(const NdtTables& tb, int f, int n,
+                                          const float (&o)[D],
+                                          const float (&v)[D],
+                                          float (&nrm)[D]) {
+  switch (f) {
+    case 0:
+      return sphere_eval<D, NORMAL>(tb.sph + (size_t)n * (D + 1), o, v, nrm);
+    case 1:
+      return plane_eval<D, NORMAL>(tb.pln + (size_t)n * (2 * D + 1), o, v,
+                                   nrm);
+    case 2:
+      return quadric_eval<D, A, NORMAL>(tb, n, o, v, nrm);
+    case 3:
+      return facet_eval<D, NORMAL>(tb, n, o, v, nrm);
+    default:
+      return hfacet_eval<D, NORMAL>(tb, n, o, v, nrm);
+  }
+}
+
+// The solve of the leaf with global id gid.
+template <int D, int A>
+__device__ __forceinline__ float eval_gid(const NdtTables& tb, int gid,
+                                          const float (&o)[D],
+                                          const float (&v)[D]) {
+  float unused[D];
+  int f = 0;
+  while (f < N_FAMS - 1 && gid >= fam_size(tb, f)) gid -= fam_size(tb, f++);
+  return eval_fam<D, A, false>(tb, f, gid, o, v, unused);
+}
+
+// Instances: D = NDT_DIM (one translation unit per D, kernels/build.py)
+// and every quadric axis count A = 1..D-1 for D <= 6 (the hcube faces of
+// a D-cube reach A = D-1); A = 1 for D = 7, 8.  NDT_DISPATCH_A(A, call)
+// runs ``call`` with the constexpr int A the tables' a_quad selects, and
+// returns -1 for an A without an instance.
+template <int A>
+struct IntC {
+  static constexpr int value = A;
+};
+
+template <int D, typename F>
+__host__ int dispatch_a(int a_quad, F&& call) {
+  switch (a_quad) {
+    case 1: return call(IntC<1>{});
+    case 2: if constexpr (D >= 3 && D <= 6) return call(IntC<2>{}); break;
+    case 3: if constexpr (D >= 4 && D <= 6) return call(IntC<3>{}); break;
+    case 4: if constexpr (D >= 5 && D <= 6) return call(IntC<4>{}); break;
+    case 5: if constexpr (D == 6) return call(IntC<5>{}); break;
+    default: break;
+  }
+  return -1;
+}
+
 }  // namespace ndt
+
+// entry-point names of one translation unit: name_d<NDT_DIM>
+#define NDT_CAT2(name, dim) name##_d##dim
+#define NDT_CAT(name, dim) NDT_CAT2(name, dim)
+#define NDT_ENTRY(name) NDT_CAT(name, NDT_DIM)

@@ -9,7 +9,10 @@
 //     transparent taints and freezes (nxt false), for the stack re-run;
 //   * local (L1075-1078): the local colour only, for the stack loop.
 // Lights (L1001-1049): ambient, directional ('d'), point ('p') and spot
-// ('s'); the C entry refuses any other kind.  Per ray:
+// ('s'); the C entry refuses any other kind.  The shadow walks run all five
+// families: spheres, planes, quadrics, facets and hfacets (L930-943).
+// Built once per D (-DNDT_DIM, kernels/build.py) with an instance for each
+// quadric axis count A (families.cuh dispatch_a).  Per ray:
 //   * ambient: winner color * lvec[0:3];
 //   * 'd': the shadow ray from the hit point, EPSILON off, toward
 //     -unit(dir); any hit over that light's tile list blocks it, so the
@@ -38,6 +41,10 @@
 // read-only cache (__ldg).  The mode and the light kinds are kernel
 // arguments: branches on them are uniform across the grid.
 #include "families.cuh"
+
+#ifndef NDT_DIM
+#error "build with -DNDT_DIM=<3..8> (ndt_tpu_torch/kernels/build.py)"
+#endif
 
 namespace {
 
@@ -73,41 +80,18 @@ __device__ bool any_hit(const NdtTables& tb, const int* __restrict__ lst,
                         const int* __restrict__ cnt, const float (&so)[D],
                         const float (&sv)[D]) {
   float unused[D];
-  const float lim = BIG * 0.5f;
   int gid0 = 0;
-  int c = __ldg(cnt + 0);
-  for (int k = 0; k < c; ++k) {
-    const int n = __ldg(lst + gid0 + k) - gid0;
-    if (sphere_eval<D, false>(tb.sph + n * (D + 1), so, sv, unused) < lim)
-      return true;
-  }
-  gid0 += tb.n_sph;
-  c = __ldg(cnt + 1);
-  for (int k = 0; k < c; ++k) {
-    const int n = __ldg(lst + gid0 + k) - gid0;
-    if (plane_eval<D, false>(tb.pln + n * (2 * D + 1), so, sv, unused) < lim)
-      return true;
-  }
-  gid0 += tb.n_pln;
-  c = __ldg(cnt + 2);
-  for (int k = 0; k < c; ++k) {
-    const int n = __ldg(lst + gid0 + k) - gid0;
-    if (quadric_eval<D, A, false>(tb, n, so, sv, unused) < lim) return true;
+#pragma unroll
+  for (int f = 0; f < N_FAMS; ++f) {
+    const int c = __ldg(cnt + f);
+    for (int k = 0; k < c; ++k) {
+      const int n = __ldg(lst + gid0 + k) - gid0;
+      if (eval_fam<D, A, false>(tb, f, n, so, sv, unused) < BIG * 0.5f)
+        return true;
+    }
+    gid0 += fam_size(tb, f);
   }
   return false;
-}
-
-// t of the leaf with global id gid along (so, sv).
-template <int D, int A>
-__device__ float eval_gid(const NdtTables& tb, int gid, const float (&so)[D],
-                          const float (&sv)[D]) {
-  float unused[D];
-  if (gid < tb.n_sph)
-    return sphere_eval<D, false>(tb.sph + gid * (D + 1), so, sv, unused);
-  gid -= tb.n_sph;
-  if (gid < tb.n_pln)
-    return plane_eval<D, false>(tb.pln + gid * (2 * D + 1), so, sv, unused);
-  return quadric_eval<D, A, false>(tb, gid - tb.n_pln, so, sv, unused);
 }
 
 // Closest hit of the point-light shadow ray (so, sv) over the list, an
@@ -120,21 +104,22 @@ __device__ float closest_ranked(const NdtTables& tb,
                                 int first_rank, int& m_out) {
   float t_acc = BIG;
   int m_acc = -1;
+  float unused[D];
   int gid0 = 0;
 #pragma unroll
-  for (int fam = 0; fam < 3; ++fam) {
-    const int c = __ldg(cnt + fam);
+  for (int f = 0; f < N_FAMS; ++f) {
+    const int c = __ldg(cnt + f);
     for (int k = 0; k < c; ++k) {
       const int gid = __ldg(lst + gid0 + k);
       const int rank = __ldg(tb.rank + gid);
       if (rank < NOTINF && rank > first_rank) continue;
-      const float t = eval_gid<D, A>(tb, gid, so, sv);
+      const float t = eval_fam<D, A, false>(tb, f, gid - gid0, so, sv, unused);
       if (t < t_acc) {
         t_acc = t;
         m_acc = __ldg(tb.mat + gid);
       }
     }
-    gid0 += fam == 0 ? tb.n_sph : tb.n_pln;
+    gid0 += fam_size(tb, f);
   }
   m_out = m_acc;
   return t_acc;
@@ -320,43 +305,22 @@ shade_kernel(NdtTables tb, const float* __restrict__ o,
   if (mode == ESCALATE) taint_out[r] = taint ? 1 : 0;
 }
 
-template <int D, int A>
-cudaError_t launch(const NdtTables& tb, const float* o, const float* v,
-                   const float* t, const int* mat, const float* nrm,
-                   const float* props, const float* lvec,
-                   const LightKinds& kinds, const int* lists,
-                   const int* counts, int n_list, int specular, int spec_pow,
-                   int mode, const float* w, const float* frac,
-                   const float* color, const unsigned char* live, float* o2,
-                   float* v2, float* w2, float* f2, float* c2,
-                   unsigned char* nxt, unsigned char* taint, float* loc,
-                   int R, cudaStream_t stream) {
-  shade_kernel<D, A><<<R / THREADS, THREADS, 0, stream>>>(
-      tb, o, v, t, mat, nrm, props, lvec, kinds, lists, counts, n_list,
-      specular, spec_pow, mode, w, frac, color, live, o2, v2, w2, f2, c2,
-      nxt, taint, loc, R);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // kinds: n_lights chars of 'd' / 'p' / 's'; lists [n_lights, R/RT, n_list],
 // counts [n_lights, R/RT, 5]: each light's shadow-ray cull.  mode 0 carry,
 // 1 escalate (taint written), 2 local (only loc written; the carry arrays
 // may be null).  R must be a multiple of RT.  Returns a cudaError_t, -1
-// when no kernel instance fits dim / a_quad, R or the mode, -2 for a light
-// kind it does not take.
-extern "C" int ndt_shade(const NdtTables* tb, const float* o, const float* v,
-                         const float* t, const int* mat, const float* nrm,
-                         const float* props, const float* lvec,
-                         const char* kinds, int n_lights, const int* lists,
-                         const int* counts, int n_list, int specular,
-                         int spec_pow, int mode, const float* w,
-                         const float* frac, const float* color,
-                         const unsigned char* live, float* o2, float* v2,
-                         float* w2, float* f2, float* c2, unsigned char* nxt,
-                         unsigned char* taint, float* loc, int R,
-                         void* stream) {
+// when no kernel instance fits a_quad, R or the mode, -2 for a light kind
+// it does not take.
+extern "C" int NDT_ENTRY(ndt_shade)(
+    const NdtTables* tb, const float* o, const float* v, const float* t,
+    const int* mat, const float* nrm, const float* props, const float* lvec,
+    const char* kinds, int n_lights, const int* lists, const int* counts,
+    int n_list, int specular, int spec_pow, int mode, const float* w,
+    const float* frac, const float* color, const unsigned char* live,
+    float* o2, float* v2, float* w2, float* f2, float* c2, unsigned char* nxt,
+    unsigned char* taint, float* loc, int R, void* stream) {
   if (n_lights < 1 || n_lights > MAX_LIGHTS) return -2;
   LightKinds lk;
   lk.n = n_lights;
@@ -364,26 +328,15 @@ extern "C" int ndt_shade(const NdtTables* tb, const float* o, const float* v,
     if (kinds[li] != 'd' && kinds[li] != 'p' && kinds[li] != 's') return -2;
     lk.k[li] = kinds[li];
   }
-  if (R % RT || mode < CARRY || mode > LOCAL) return -1;
+  if (R % RT || mode < CARRY || mode > LOCAL || tb->dim != NDT_DIM)
+    return -1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NDT_CASE(DIM, A)                                                    \
-  case DIM * 16 + A:                                                        \
-    return launch<DIM, A>(*tb, o, v, t, mat, nrm, props, lvec, lk, lists,  \
-                          counts, n_list, specular, spec_pow, mode, w, frac, \
-                          color, live, o2, v2, w2, f2, c2, nxt, taint, loc,  \
-                          R, s);
-  switch (tb->dim * 16 + tb->a_quad) {
-    NDT_CASE(3, 1)
-    NDT_CASE(4, 1)
-    NDT_CASE(5, 1)
-    NDT_CASE(6, 1)
-    NDT_CASE(7, 1)
-    NDT_CASE(8, 1)
-    NDT_CASE(4, 2)
-    NDT_CASE(5, 2)
-    NDT_CASE(6, 2)
-    default:
-      return -1;
-  }
-#undef NDT_CASE
+  return dispatch_a<NDT_DIM>(tb->a_quad, [&](auto a) {
+    shade_kernel<NDT_DIM, decltype(a)::value>
+        <<<R / THREADS, THREADS, 0, s>>>(
+            *tb, o, v, t, mat, nrm, props, lvec, lk, lists, counts, n_list,
+            specular, spec_pow, mode, w, frac, color, live, o2, v2, w2, f2,
+            c2, nxt, taint, loc, R);
+    return (int)cudaGetLastError();
+  });
 }

@@ -2,32 +2,49 @@
 // candidate list.
 //
 // Replaces: ndt_tpu/render/pallas_trace.py pallas_trace(mode="closest")
-// (L1730), kernel body _make_kernel (L565) with the sphere, plane and
-// quadric families (_quadric_eval L157: cylinders, orthotope slabs with
-// their closest-approach fallback and kd leaf-cell gates); no chunk
-// seeding, no early exit.  Instances: D = 3..8 with one quadric axis, and
-// D = 4..6 with two (the orthotope 2-flats of the 6-D anim6d scene).
+// (L1730), kernel body _make_kernel (L565) over all five families: spheres,
+// planes, quadrics (_quadric_eval L157: cylinders, hcylinders, orthotope
+// slabs and hcube faces with their closest-approach fallback and kd
+// leaf-cell gates), facets (_facet_eval L293) and hfacets (_hfacet_eval
+// L377) with their row gates (_row_gate_pierce L264), and the front-to-back
+// early exit over reach-sorted lists (_use_early_exit L529, loop L701-743).
+// No chunk seeding (has_init): the tables sit whole in global memory.
+// Built once per D (-DNDT_DIM, kernels/build.py) with an instance for each
+// quadric axis count A (families.cuh dispatch_a).
 //
-// Semantics kept exactly: candidates run in global-id order (spheres, then
-// planes, then quadrics, each list ascending), a strict '<' keeps the
-// earlier gid on a tie, candidates of the ray's excluded material (aux) are
-// skipped, and the winner's 8 material properties are props[mat] (zeros on
-// a miss), which is what the TPU kernel's per-candidate select yields since
-// the winner is always on the list.
+// Semantics kept exactly: candidates run in list order, family by family
+// (spheres, planes, quadrics, facets, hfacets), a strict '<' keeps the
+// earlier candidate on a tie, candidates of the ray's excluded material
+// (aux) are skipped, and the winner's 8 material properties are props[mat]
+// (zeros on a miss), which is what the TPU kernel's per-candidate select
+// yields since the winner is always on the list.
+//
+// The early exit: with reach (the cull's lower bound on any hit distance
+// of each listed candidate, each family's list sorted by it), a lane stops
+// walking a family at the first candidate whose reach exceeds its best t,
+// and a dead lane (live false) walks nothing.  A candidate past that point
+// can only give t >= reach > best, so every live lane's winner is the full
+// walk's.  The TPU stops a whole tile at the largest best t of its live
+// lanes; stopping each lane on its own is a finer grain of the same test:
+// a warp runs until its last lane stops.
 //
 // What bounds it on an H100: arithmetic.  A ray costs ~50-120 f32 flops
-// per candidate (D = 4; ~250 for a gated 6-D slab), over the candidates of
-// its tile, against ~90-130 bytes of ray input and output.  The scene
-// tables are a few KB.
+// per sphere or plane candidate, ~150-450 per quadric (D = 4..6, A = 1..5)
+// and ~250-400 per facet, against ~90-130 bytes of ray input and output.
+// The scene tables are KBs to a few hundred KB (random150: 3891 leaves).
 // Design: one thread per ray, its components in registers (templated on
-// D, loops unrolled).  A 128-ray block lies inside one 4096-ray cull tile,
-// so every thread of a warp walks the same list: no divergence in the loop
-// trip count, and the list, count and table reads are warp-uniform
-// addresses served by the read-only cache (__ldg).  The winner's normal is
-// recomputed once at the end (the same arithmetic, so the same bits) rather
-// than carried through the loop.  Not yet done: shared-memory staging of
-// the tile's candidate rows, warp-level early exit.
+// D and A, loops unrolled).  A 128-ray block lies inside one 4096-ray cull
+// tile, so every thread of a warp walks the same list: no divergence in
+// the loop trip count short of the exit, and the list, count, reach and
+// table reads are warp-uniform addresses served by the read-only cache
+// (__ldg).  The winner's normal is recomputed once at the end (the same
+// arithmetic, so the same bits) rather than carried through the loop.  Not
+// yet done: shared-memory staging of the tile's candidate rows.
 #include "families.cuh"
+
+#ifndef NDT_DIM
+#error "build with -DNDT_DIM=<3..8> (ndt_tpu_torch/kernels/build.py)"
+#endif
 
 namespace {
 
@@ -38,7 +55,9 @@ __global__ void __launch_bounds__(THREADS)
 trace_closest_kernel(NdtTables tb, const float* __restrict__ o,
                      const float* __restrict__ v, const int* __restrict__ aux,
                      const int* __restrict__ lists,
-                     const int* __restrict__ counts, int n_list,
+                     const int* __restrict__ counts,
+                     const float* __restrict__ reach,
+                     const unsigned char* __restrict__ live, int n_list,
                      const float* __restrict__ props, float* __restrict__ t_out,
                      int* __restrict__ m_out, float* __restrict__ n_out,
                      float* __restrict__ p_out, int R) {
@@ -55,44 +74,34 @@ trace_closest_kernel(NdtTables tb, const float* __restrict__ o,
   const int excl = aux[r];
   const int* lst = lists + (size_t)tile * n_list;
   const int* cnt = counts + (size_t)tile * N_FAMS;
+  // early exit: a dead lane's best t counts as -1, below every reach
+  const float* rch = reach ? reach + (size_t)tile * n_list : nullptr;
+  const bool lv = live ? live[r] != 0 : true;
 
   float t1 = BIG;
   int m1 = -1, wfam = -1, wrow = 0;
   int gid0 = 0;
-  int c = __ldg(cnt + 0);
-  for (int k = 0; k < c; ++k) {
-    const int n = __ldg(lst + gid0 + k) - gid0;
-    float t = sphere_eval<D, false>(tb.sph + n * (D + 1), ro, rv, nrm);
-    const int mat = __ldg(tb.mat + gid0 + n);
-    if (mat == excl) t = BIG;
-    if (t < t1) { t1 = t; m1 = mat; wfam = 0; wrow = n; }
-  }
-  gid0 += tb.n_sph;
-  c = __ldg(cnt + 1);
-  for (int k = 0; k < c; ++k) {
-    const int n = __ldg(lst + gid0 + k) - gid0;
-    float t = plane_eval<D, false>(tb.pln + n * (2 * D + 1), ro, rv, nrm);
-    const int mat = __ldg(tb.mat + gid0 + n);
-    if (mat == excl) t = BIG;
-    if (t < t1) { t1 = t; m1 = mat; wfam = 1; wrow = n; }
-  }
-  gid0 += tb.n_pln;
-  c = __ldg(cnt + 2);
-  for (int k = 0; k < c; ++k) {
-    const int n = __ldg(lst + gid0 + k) - gid0;
-    float t = quadric_eval<D, A, false>(tb, n, ro, rv, nrm);
-    const int mat = __ldg(tb.mat + gid0 + n);
-    if (mat == excl) t = BIG;
-    if (t < t1) { t1 = t; m1 = mat; wfam = 2; wrow = n; }
+#pragma unroll
+  for (int f = 0; f < N_FAMS; ++f) {
+    const int c = __ldg(cnt + f);
+    for (int k = 0; k < c; ++k) {
+      if (rch && !(__ldg(rch + gid0 + k) <= (lv ? t1 : -1.f))) break;
+      const int n = __ldg(lst + gid0 + k) - gid0;
+      float t = eval_fam<D, A, false>(tb, f, n, ro, rv, nrm);
+      const int mat = __ldg(tb.mat + gid0 + n);
+      if (mat == excl) t = BIG;
+      if (t < t1) {
+        t1 = t;
+        m1 = mat;
+        wfam = f;
+        wrow = n;
+      }
+    }
+    gid0 += fam_size(tb, f);
   }
 
   // the winner's normal: the same solve again, with the normal this time
-  if (wfam == 0)
-    sphere_eval<D, true>(tb.sph + wrow * (D + 1), ro, rv, nrm);
-  else if (wfam == 1)
-    plane_eval<D, true>(tb.pln + wrow * (2 * D + 1), ro, rv, nrm);
-  else if (wfam == 2)
-    quadric_eval<D, A, true>(tb, wrow, ro, rv, nrm);
+  if (wfam >= 0) eval_fam<D, A, true>(tb, wfam, wrow, ro, rv, nrm);
 
   t_out[r] = t1;
   m_out[r] = m1;
@@ -104,45 +113,23 @@ trace_closest_kernel(NdtTables tb, const float* __restrict__ o,
         m1 >= 0 ? __ldg(props + m1 * N_PROPS + j) : 0.f;
 }
 
-template <int D, int A>
-cudaError_t launch(const NdtTables& tb, const float* o, const float* v,
-                   const int* aux, const int* lists, const int* counts,
-                   int n_list, const float* props, float* t_out, int* m_out,
-                   float* n_out, float* p_out, int R, cudaStream_t stream) {
-  trace_closest_kernel<D, A><<<R / THREADS, THREADS, 0, stream>>>(
-      tb, o, v, aux, lists, counts, n_list, props, t_out, m_out, n_out,
-      p_out, R);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// R must be a multiple of RT (checked by the wrapper).  Returns a
-// cudaError_t, or -1 when no kernel instance fits dim / a_quad or R.
-extern "C" int ndt_trace_closest(const NdtTables* tb, const float* o,
-                                 const float* v, const int* aux,
-                                 const int* lists, const int* counts,
-                                 int n_list, const float* props, float* t_out,
-                                 int* m_out, float* n_out, float* p_out, int R,
-                                 void* stream) {
-  if (R % RT) return -1;
+// R must be a multiple of RT (checked by the wrapper); reach and live are
+// both null (no early exit) or both given.  Returns a cudaError_t, or -1
+// when no kernel instance fits a_quad or R.
+extern "C" int NDT_ENTRY(ndt_trace_closest)(
+    const NdtTables* tb, const float* o, const float* v, const int* aux,
+    const int* lists, const int* counts, const float* reach,
+    const unsigned char* live, int n_list, const float* props, float* t_out,
+    int* m_out, float* n_out, float* p_out, int R, void* stream) {
+  if (R % RT || tb->dim != NDT_DIM) return -1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NDT_CASE(DIM, A)                                                 \
-  case DIM * 16 + A:                                                     \
-    return launch<DIM, A>(*tb, o, v, aux, lists, counts, n_list, props, \
-                          t_out, m_out, n_out, p_out, R, s);
-  switch (tb->dim * 16 + tb->a_quad) {
-    NDT_CASE(3, 1)
-    NDT_CASE(4, 1)
-    NDT_CASE(5, 1)
-    NDT_CASE(6, 1)
-    NDT_CASE(7, 1)
-    NDT_CASE(8, 1)
-    NDT_CASE(4, 2)
-    NDT_CASE(5, 2)
-    NDT_CASE(6, 2)
-    default:
-      return -1;
-  }
-#undef NDT_CASE
+  return dispatch_a<NDT_DIM>(tb->a_quad, [&](auto a) {
+    trace_closest_kernel<NDT_DIM, decltype(a)::value>
+        <<<R / THREADS, THREADS, 0, s>>>(*tb, o, v, aux, lists, counts, reach,
+                                         live, n_list, props, t_out, m_out,
+                                         n_out, p_out, R);
+    return (int)cudaGetLastError();
+  });
 }

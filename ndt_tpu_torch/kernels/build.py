@@ -4,9 +4,11 @@ plain C interface, loaded with ctypes.
 The library is compiled at first use, from this checkout's sources only,
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` (Hopper) into
 ``ndt_tpu_torch/_build/`` under a name that hashes the sources and flags,
-so a stale library is never loaded.  Each ``.cu`` compiles to an object in
-its own nvcc process, all started together, then one nvcc links them.  The
-first build prints the nvcc version line and ptxas' per-kernel register /
+so a stale library is never loaded.  Each ``.cu`` compiles once per
+dimension D in DIMS (``-DNDT_DIM=D``: one translation unit per D, whose
+entry points end in ``_d<D>``), every (source, D) object in its own nvcc
+process, all started together; then one nvcc links them.  The first build
+prints the nvcc version line, its time and ptxas' per-kernel register /
 spill report.  A missing nvcc or a failed build raises.
 """
 
@@ -27,6 +29,9 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # the fused multiply-adds the JAX reference computes (see csrc/families.cuh)
 NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
               "-Xcompiler", "-fPIC"]
+
+# the dimensions the library instantiates
+DIMS = (3, 4, 5, 6, 7, 8)
 
 _lib = None
 
@@ -68,22 +73,24 @@ def build() -> str:
         return out
     nvcc = find_nvcc()
     os.makedirs(_BUILD, exist_ok=True)
-    cus = [s for s in _sources() if s.endswith(".cu")]
+    units = [(s, d) for s in _sources() if s.endswith(".cu") for d in DIMS]
     pid = os.getpid()
-    objs = [os.path.join(_BUILD, f"{os.path.basename(s)}.{tag}.{pid}.o")
-            for s in cus]
+    objs = [os.path.join(_BUILD,
+                         f"{os.path.basename(s)}.d{d}.{tag}.{pid}.o")
+            for s, d in units]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, f"-DNDT_DIM={d}", "-c", src,
+                               "-o", obj],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True)
-             for src, obj in zip(cus, objs)]
+             for (src, d), obj in zip(units, objs)]
     reports = []
     failed = []
-    for src, proc in zip(cus, procs):
+    for (src, d), proc in zip(units, procs):
         so, se = proc.communicate()
         reports.append(so + se)
         if proc.returncode:
-            failed.append(f"nvcc {os.path.basename(src)} failed "
+            failed.append(f"nvcc {os.path.basename(src)} D={d} failed "
                           f"({proc.returncode}):\n{so}\n{se}")
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -97,8 +104,9 @@ def build() -> str:
                            f"{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)
     print(f"[ndt_tpu_torch] {nvcc_version(nvcc)}")
-    print(f"[ndt_tpu_torch] built {os.path.basename(out)} from {len(cus)} "
-          f"sources in parallel in {time.perf_counter() - t0:.1f} s; ptxas:")
+    print(f"[ndt_tpu_torch] built {os.path.basename(out)} from "
+          f"{len(units)} translation units (sources x D) in parallel in "
+          f"{time.perf_counter() - t0:.1f} s; ptxas:")
     for line in "".join(reports).splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
@@ -110,12 +118,13 @@ def load_library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        lib.ndt_trace_closest.argtypes = (
-            [_P] * 6 + [_I] + [_P] * 5 + [_I, _P])
-        lib.ndt_trace_closest.restype = _I
-        lib.ndt_shade.argtypes = (
-            [_P] * 8 + [ctypes.c_char_p, _I] + [_P] * 2 + [_I] * 4
-            + [_P] * 12 + [_I, _P])
-        lib.ndt_shade.restype = _I
+        for d in DIMS:
+            fn = getattr(lib, f"ndt_trace_closest_d{d}")
+            fn.argtypes = [_P] * 8 + [_I] + [_P] * 5 + [_I, _P]
+            fn.restype = _I
+            fn = getattr(lib, f"ndt_shade_d{d}")
+            fn.argtypes = ([_P] * 8 + [ctypes.c_char_p, _I] + [_P] * 2
+                           + [_I] * 4 + [_P] * 12 + [_I, _P])
+            fn.restype = _I
         _lib = lib
     return _lib

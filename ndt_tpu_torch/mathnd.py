@@ -116,6 +116,11 @@ def angle(v1, v2):
     return np.where(ok, np.arccos(cosv), -1.0)
 
 
+def angle3(p1, p2, p3):
+    """Angle at vertex p2 of the triangle p1-p2-p3 (vectNd.c:83-99)."""
+    return angle(p1 - p2, p3 - p2)
+
+
 def reflect(u, n, mag=1.0):
     """Reflect u about the hyperplane with normal n (vectNd.c:101-117):
     ``u - (1+mag) * (n.u)/(n.n) * n``."""

@@ -1,12 +1,13 @@
-"""Host C++ components (the balls physics stepper and the bounding-sphere
-fit), loaded with ctypes.
+"""Host C++ components (the balls physics stepper, the bounding-sphere
+fits, one or a threaded batch, and the kd leaf cells), loaded with ctypes.
 
-The sources (``*.cc`` here) are the JAX package's own host sources, built
-with the same host compiler and flags, so that scene preparation gives the
-same bits in both packages.  They compile at first use into the git-ignored
-``ndt_tpu_torch/_build/`` under a name that hashes sources and flags.
-Without a host compiler every caller takes the numpy path that the JAX
-package takes in the same case.
+``physics.cc`` and ``bounding.cc`` are the JAX package's own host sources,
+built with the same host compiler and flags, so that scene preparation
+gives the same bits in both packages; ``kdcells.cc`` is the port's Python
+kd recursion (utils/kdtree.py) in C++, bit-equal to it.  They compile at
+first use into the git-ignored ``ndt_tpu_torch/_build/`` under a name that
+hashes sources and flags.  Without a host compiler every caller takes its
+numpy / Python path.
 """
 
 from __future__ import annotations
@@ -63,6 +64,16 @@ def get_lib():
                                            ctypes.c_int64, ctypes.c_double,
                                            _PD]
         lib.ndt_optimal_sphere.restype = ctypes.c_double
+        lib.ndt_optimal_spheres.argtypes = [
+            _PD, _PD, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_double, _PD, _PD]
+        lib.ndt_optimal_spheres.restype = None
+        lib.ndt_kd_cells.argtypes = [_PD, _PD] + [ctypes.c_int64] * 2 + [
+            ctypes.c_double, ctypes.POINTER(ctypes.c_int64)]
+        lib.ndt_kd_cells.restype = ctypes.c_void_p
+        lib.ndt_kd_cells_take.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), _PD]
+        lib.ndt_kd_cells_take.restype = None
         _LIB = lib
     return _LIB
 
@@ -103,3 +114,44 @@ def optimal_sphere(pts, radii, eps):
     out = np.empty(d, np.float64)
     radius = lib.ndt_optimal_sphere(_ptr(p), _ptr(r), n, d, eps, _ptr(out))
     return out, float(radius)
+
+
+def optimal_spheres(pts, radii, offsets, eps):
+    """Minimal bounding spheres of m point sets packed into pts [sum_n, d]
+    with radii [sum_n] and offsets [m + 1] (int64), fitted on the host's
+    threads: (centers [m, d], radii [m]), or None when the library is
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    p = np.ascontiguousarray(pts, np.float64)
+    r = np.ascontiguousarray(radii, np.float64)
+    off = np.ascontiguousarray(offsets, np.int64)
+    m, d = len(off) - 1, p.shape[1]
+    centers = np.empty((m, d), np.float64)
+    out_r = np.empty(m, np.float64)
+    lib.ndt_optimal_spheres(_ptr(p), _ptr(r),
+                            off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                            m, d, eps, _ptr(centers), _ptr(out_r))
+    return centers, out_r
+
+
+def kd_cells(lowers, uppers, eps):
+    """The kd leaf cells of n items with boxes lowers / uppers [n, D] (the
+    records of utils/kdtree.build_c_exact in its order): (items [K] int64,
+    boxes [K, D, 2] float64), or None when the library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    lo = np.ascontiguousarray(lowers, np.float64)
+    hi = np.ascontiguousarray(uppers, np.float64)
+    n, d = lo.shape
+    count = ctypes.c_int64()
+    handle = lib.ndt_kd_cells(_ptr(lo), _ptr(hi), n, d, eps,
+                              ctypes.byref(count))
+    items = np.empty(count.value, np.int64)
+    boxes = np.empty((count.value, d, 2), np.float64)
+    lib.ndt_kd_cells_take(handle,
+                          items.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                          _ptr(boxes))
+    return items, boxes

@@ -8,8 +8,10 @@
 // COVERS the points (its radius is re-measured from the final center), so
 // ulp differences vs the numpy path only move conservative culls.
 
+#include <atomic>
 #include <cmath>
 #include <cstdint>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -233,6 +235,40 @@ double ndt_optimal_sphere(const double *pts, const double *radii, int64_t n,
     }
     for (int64_t k = 0; k < d; ++k) out_center[k] = best[k];
     return best_radius;
+}
+
+// Batched fit: m independent point sets packed into one [sum_n, d] array
+// with offsets[m + 1] (set i spans rows offsets[i]..offsets[i+1]), one fit
+// per set, spread across hardware threads: scene compilation at thousands
+// of leaves (the hcube faces of the random scenes) calls this once.  The
+// same batched fit as ndt_tpu/native/bounding.cc; each set's bits are
+// ndt_optimal_sphere's.
+void ndt_optimal_spheres(const double *pts, const double *radii,
+                         const int64_t *offsets, int64_t m, int64_t d,
+                         double eps, double *out_centers,
+                         double *out_radii) {
+    std::atomic<int64_t> next(0);
+    auto worker = [&]() {
+        for (;;) {
+            const int64_t i = next.fetch_add(1);
+            if (i >= m) return;
+            const int64_t lo = offsets[i];
+            const int64_t n = offsets[i + 1] - lo;
+            out_radii[i] = ndt_optimal_sphere(
+                pts + lo * d, radii + lo, n, d, eps, out_centers + i * d);
+        }
+    };
+    unsigned hw = std::thread::hardware_concurrency();
+    int64_t n_thr = hw ? static_cast<int64_t>(hw) : 4;
+    if (n_thr > m) n_thr = m;
+    if (n_thr <= 1) {
+        worker();
+        return;
+    }
+    std::vector<std::thread> pool;
+    pool.reserve(n_thr);
+    for (int64_t t = 0; t < n_thr; ++t) pool.emplace_back(worker);
+    for (auto &t : pool) t.join();
 }
 
 }  // extern "C"

@@ -3,11 +3,16 @@ each beside its plain PyTorch twin.
 
 Counterpart of ``ndt_tpu/render/pallas_trace.py``:
 
-  cull_lists        <- cull_lists (L1490), the XLA interval pass: torch ops
+  cull_lists        <- cull_lists (L1490), the XLA interval pass: torch ops,
+                       with the reach-sorted lists of the early exit
   trace_closest     <- pallas_trace(mode="closest") (L1730, _make_kernel
-                       L565) with the sphere, plane and quadric families,
-                       quadric slabs and kd leaf-cell gates (_quadric_eval
-                       L157): csrc/trace_closest.cu, twin trace_closest_ref
+                       L565) over all five families: spheres, planes,
+                       quadrics with slabs and kd leaf-cell gates
+                       (_quadric_eval L157), facets (_facet_eval L293) and
+                       hfacets (_hfacet_eval L377) with their row gates
+                       (_row_gate_pierce L264), and the front-to-back early
+                       exit over reach-sorted lists (L701-743):
+                       csrc/trace_closest.cu, twin trace_closest_ref
   shade_carry       <- pallas_shade(carry=...) (L1128, _make_shade_kernel
                        L886), optionally with escalate (L1112-1119):
                        csrc/shade.cu, twin shade_carry_ref
@@ -15,7 +20,8 @@ Counterpart of ``ndt_tpu/render/pallas_trace.py``:
                        colour only, csrc/shade.cu, twin shade_local_ref
 
 Both shade entry points take ambient, directional ('d'), point ('p') and
-spot ('s') lights (L1001-1049); area lights raise.
+spot ('s') lights (L1001-1049) and walk all five families; area lights
+raise.
 
 A wrapper takes its twin only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises.  The twins are vectorised over [rays,
@@ -45,20 +51,30 @@ N_FAMS = 5     # cull-count columns: sph, pln, quad, fct, hf
 # shadow rank of every finite leaf is NOT_INFINITE = 1 << 30; a rank at or
 # above this cut is never truncated (pallas_trace NOTINF)
 NOTINF = (1 << 30) - 1
-# rays per twin evaluation chunk (a multiple of RT): bounds the
-# [rays, candidates] temporaries of a full 1080p tile
+# rays per twin evaluation chunk (a multiple of RT) and candidates per
+# family evaluated at once: bound the [rays, candidates] temporaries
 _REF_CHUNK = 16 * RT
+_K_CHUNK = 64
 LIGHT_KINDS = "dps"   # directional, point, spot
+# leaves from which the closest-hit walk runs reach-sorted lists with the
+# early exit (pallas_trace._EE_MIN_OBJECTS): below it every tile lists
+# every object anyway and the sort costs more than the exit saves
+EE_MIN_OBJECTS = 192
 
 # Launches per kernel variant, counted where a wrapper launches a kernel.
-# A trace launch counts once: "trace_gated" for a scene with orthotope
-# slabs, several quadric axes or kd gates, else "trace_closest".  A shade
-# launch counts once under its mode ("shade_carry", "shade_escalate",
-# "shade_local") and once more under "shade_point" / "shade_spot" when its
-# lights include a point / spot light.
+# A trace launch counts once under "trace_gated" for a scene with
+# orthotope slabs, several quadric axes or kd gates, else under
+# "trace_closest"; once more under "trace_facets" when the scene has
+# facets or hfacets, and once more under "trace_early_exit" when it walks
+# reach-sorted lists with the early exit.  A shade launch counts once
+# under its mode ("shade_carry", "shade_escalate", "shade_local"), once
+# more under "shade_point" / "shade_spot" when its lights include a point /
+# spot light, and once more under "shade_facets" when the scene has
+# facets or hfacets.
 launch_counts = {k: 0 for k in (
-    "trace_closest", "trace_gated", "shade_carry", "shade_escalate",
-    "shade_local", "shade_point", "shade_spot")}
+    "trace_closest", "trace_gated", "trace_facets", "trace_early_exit",
+    "shade_carry", "shade_escalate", "shade_local", "shade_point",
+    "shade_spot", "shade_facets")}
 
 
 def reset_launch_counts():
@@ -72,7 +88,8 @@ def _families(scn: DeviceScene):
     out = []
     off = 0
     for name, col, n in (("sph", 0, scn.n_sph), ("pln", 1, scn.n_pln),
-                         ("quad", 2, scn.n_quad)):
+                         ("quad", 2, scn.n_quad), ("fct", 3, scn.n_fct),
+                         ("hf", 4, scn.n_hf)):
         if n:
             out.append((name, col, off, n))
         off += n
@@ -92,6 +109,16 @@ def is_gated(scn: DeviceScene) -> bool:
     return scn.a_quad > 1 or scn.b_gate > 0
 
 
+def has_facets(scn: DeviceScene) -> bool:
+    return scn.n_fct + scn.n_hf > 0
+
+
+def use_early_exit(scn: DeviceScene) -> bool:
+    """Does the closest-hit walk run reach-sorted lists with the early
+    exit (pallas_trace._use_early_exit)?"""
+    return scn.n_total >= EE_MIN_OBJECTS
+
+
 # --------------------------------------------------------------------------
 # X1: per-tile conservative cull (torch ops)
 
@@ -101,7 +128,8 @@ def _imul(alo, ahi, blo, bhi):
     return cands.amin(0), cands.amax(0)
 
 
-def cull_lists(scn: DeviceScene, o, v, live=None, limit=None):
+def cull_lists(scn: DeviceScene, o, v, live=None, limit=None,
+               want_reach=False):
     """Per-tile object culling (pallas_trace.cull_lists, L1490-1718): for
     every RT-ray tile, interval arithmetic over the tile's origin/direction
     bounds against each leaf's bounding sphere, then the padded geometry
@@ -112,7 +140,13 @@ def cull_lists(scn: DeviceScene, o, v, live=None, limit=None):
 
     Returns (lists [n_tiles, N] int32 -- each family's survivor gids at
     its global-id offset, zero padded -- and counts [n_tiles, N_FAMS]
-    int32)."""
+    int32).  With ``want_reach`` each family's survivors are sorted stably
+    by their reach, a lower bound on the hit distance of any ray of the
+    tile (the larger of the origin box's distance to the bounding sphere
+    and the geometry box's entry, less 0.1% and EPSILON; 0 for infinite
+    leaves), the whole family follows with culled gids keyed BIG, and the
+    return gains reach [n_tiles, N] f32 in list order: the walk the early
+    exit prunes (L1663-1717)."""
     R, D = o.shape
     n_tiles = R // RT
     o_t = o.reshape(n_tiles, RT, D)
@@ -192,15 +226,15 @@ def cull_lists(scn: DeviceScene, o, v, live=None, limit=None):
     tslack = EPSILON + 1e-5 * box_xhi.abs()
     may_hit &= ~((box_elo > box_xhi + tslack) | (box_xhi < -tslack)
                  | box_never)
+    # squared distance from the tile's origin box to the sphere center
+    straddle = (oc_lo <= 0.0) & (oc_hi >= 0.0)
+    m = torch.where(straddle, 0.0, torch.minimum(oc_lo.abs(), oc_hi.abs()))
+    d2_lo = m[..., 0] * m[..., 0]
+    for d in range(1, D):
+        d2_lo = d2_lo + m[..., d] * m[..., d]
     if limit is not None:
         # a sphere farther from the tile's origin box than the tile's
         # longest ray limit can never be hit
-        straddle = (oc_lo <= 0.0) & (oc_hi >= 0.0)
-        m = torch.where(straddle, 0.0,
-                        torch.minimum(oc_lo.abs(), oc_hi.abs()))
-        d2_lo = m[..., 0] * m[..., 0]
-        for d in range(1, D):
-            d2_lo = d2_lo + m[..., d] * m[..., d]
         lim = limit.reshape(n_tiles, RT)
         if live is not None:
             lim = torch.where(live.reshape(n_tiles, RT), lim, 0.0)
@@ -216,15 +250,35 @@ def cull_lists(scn: DeviceScene, o, v, live=None, limit=None):
                          device=o.device)
     lists = torch.zeros((n_tiles, max(n_tot, 1)), dtype=torch.int32,
                         device=o.device)
+    if want_reach:
+        # a conservative under-estimate: the 0.1% and EPSILON slack absorb
+        # f32 rounding and not-exactly-unit v, so the exit can only fire
+        # late, never wrongly (XLA contracts none of the cull's products)
+        reach_sph = torch.clamp_min(
+            (sqrt(d2_lo) - r) * (1.0 - 1e-3) - EPSILON, 0.0)
+        reach_box = torch.clamp_min(box_elo * (1.0 - 1e-3) - EPSILON, 0.0)
+        reach_all = torch.where(r2[None, :] < 0.0, 0.0,
+                                torch.maximum(reach_sph, reach_box))
+        reach = torch.zeros((n_tiles, max(n_tot, 1)), dtype=torch.float32,
+                            device=o.device)
     for _, col, off, sz in _families(scn):
         mh = may_hit[:, off:off + sz]
         cnt = mh.sum(1, dtype=torch.int32)
+        counts[:, col] = cnt
+        if want_reach:
+            keys, order = torch.sort(
+                torch.where(mh, reach_all[:, off:off + sz], BIG), dim=1,
+                stable=True)
+            lists[:, off:off + sz] = (order + off).to(torch.int32)
+            reach[:, off:off + sz] = keys
+            continue
         # stable partition: survivors first, in ascending gid
         order = torch.sort((~mh).to(torch.int8), dim=1, stable=True)[1]
         slots = torch.arange(sz, device=o.device)[None, :]
         lists[:, off:off + sz] = torch.where(slots < cnt[:, None],
                                              order + off, 0).to(torch.int32)
-        counts[:, col] = cnt
+    if want_reach:
+        return lists, counts, reach
     return lists, counts
 
 
@@ -303,9 +357,10 @@ def _plane_eval(p, nv, r2, o, v, D, want_normal):
 
 
 def _gate_pierced(qgt, qgp, o, v, D, B):
-    """kd leaf-cell gate (pallas_trace L219-250): does the ray pierce one
-    of the B t boxes, position-checked in near-parallel dims?  qgt / qgp:
-    [..., B, D, 2] boxes of each candidate's gate slot."""
+    """kd leaf-cell gate (pallas_trace L219-250, _row_gate_pierce
+    L264-290): does the ray pierce one of the B t boxes, position-checked
+    in near-parallel dims?  qgt / qgp: [..., B, D, 2] boxes of each
+    candidate (a quadric's gate slot, a facet's or hfacet's row)."""
     pierced = None
     for b in range(B):
         tl = torch.full((), -BIG, device=qgt.device)
@@ -393,10 +448,120 @@ def _quadric_eval(base, ax, lo, hi, off, slab, gates, o, v, D, A,
     return t, [-fma(delta, P[d], Q[d]) for d in range(D)]
 
 
+def _facet_eval(prm, gates, o, v, D, want_normal):
+    """Triangle facet (facet.c:166-269, pallas_trace L293-370): the plane
+    closest approach with the EPSILON surface-distance acceptance (the
+    Lagrange gram sum for an f32-stable |surf| at the minimum), the
+    vertex-angle inside test (facet.c:149-164; a degenerate angle passes)
+    and, with ``gates``, the kd leaf-cell gate.  prm: [..., 10D+11] rows
+    (compile.pack_tables).  The normal is dir[0] (facet.c:257)."""
+    b0 = [prm[..., d] for d in range(D)]
+    b1 = [prm[..., D + d] for d in range(D)]
+    base = [prm[..., 2 * D + d] for d in range(D)]
+    a0, a1 = dot(v, b0), dot(v, b1)
+    c0 = dot(o, b0) - prm[..., 3 * D]
+    c1 = dot(o, b1) - prm[..., 3 * D + 1]
+    v_perp = [_axes_sum([a0, a1], [b0, b1], d, v[d]) for d in range(D)]
+    x_perp = [_axes_sum([c0, c1], [b0, b1], d, o[d] - base[d])
+              for d in range(D)]
+    qa = dot(v_perp, v_perp)
+    qb = 2.0 * dot(v_perp, x_perp)
+    qc = dot(x_perp, x_perp)
+    small_qa = qa.abs() < EPSILON
+    lin = (qb.abs() < EPSILON) & (qb != 0.0)
+    t_lin = -qc / torch.where(lin, qb, 1.0)
+    t_min = -qb / (2.0 * torch.where(small_qa, 1.0, qa))
+    t = torch.where(small_qa, torch.where(lin, t_lin, -1.0), t_min)
+    ms = [_cross2(v_perp[a], x_perp[b], v_perp[b], x_perp[a])
+          for a in range(D) for b in range(a + 1, D)]
+    surf = torch.where(small_qa, fma(qa * t, t, qb * t) + qc,
+                       dot(ms, ms) / torch.where(small_qa, 1.0, qa))
+    ok = (t >= EPSILON) & (surf.abs() <= EPSILON)
+    oo, vo, vv = dot(o, o), dot(v, o), dot(v, v)
+    for i in range(3):
+        vi = [prm[..., 3 * D + 2 + i * D + d] for d in range(D)]
+        ei = [prm[..., 6 * D + 2 + i * D + d] for d in range(D)]
+        u_dot_e = fma(t, dot(v, ei), dot(o, ei) - prm[..., 9 * D + 2 + i])
+        u2 = fma(t * t, vv, fma(2.0 * t, vo - dot(v, vi),
+                                (oo - 2.0 * dot(o, vi)) + dot(vi, vi)))
+        div = sqrt(torch.clamp_min(u2, 0.0) * prm[..., 9 * D + 5 + i])
+        cos_q = u_dot_e / torch.where(div > EPSILON, div, 1.0)
+        # a degenerate div is vectNd_angle's -1, which passes
+        ok = ok & ((div <= EPSILON) | (cos_q >= prm[..., 9 * D + 8 + i]))
+    if gates is not None:
+        ok = ok & _gate_pierced(*gates, o, v, D, gates[0].shape[-3])
+    t = torch.where(ok, t, BIG)
+    if not want_normal:
+        return t, None
+    return t, [prm[..., 9 * D + 11 + d].expand(t.shape) for d in range(D)]
+
+
+def _hfacet_eval(prm, gates, o, v, D, want_normal):
+    """hfacet (hfacet.c:211-310, pallas_trace L377-455): the
+    ones-contraction linear solve, the 2-D barycentric inside test, the
+    per-ray bounding-sphere gate the C's trace() cull gives it
+    (bounding.c:34-85) and, with ``gates``, the kd leaf-cell gate.  prm:
+    [..., 7D+12] rows (compile.pack_tables).  The normal interpolates the
+    vertex normals where flag[0] is set, else points from the plane's
+    closest point to the observer (hfacet.c:279-297)."""
+    v0 = [prm[..., d] for d in range(D)]
+    ue0 = [prm[..., D + d] for d in range(D)]
+    ep = [prm[..., 2 * D + d] for d in range(D)]
+    sum_ue0, sum_ep, v0_ue0, v0_ep, v0_sum, x2, y2, x3, y3, inv_den, use_n \
+        = (prm[..., 3 * D + j] for j in range(11))
+    sv, so = v[0], o[0]
+    for d in range(1, D):
+        sv, so = sv + v[d], so + o[d]
+    v_ue0, v_ep = dot(v, ue0), dot(v, ep)
+    rv = fma(v_ue0, sum_ue0, v_ep * sum_ep) - sv
+    x_ue0 = dot(o, ue0) - v0_ue0
+    x_ep = dot(o, ep) - v0_ep
+    qv = fma(x_ue0, sum_ue0, x_ep * sum_ep) - (so - v0_sum)
+    ok = rv.abs() >= EPSILON
+    t = -qv / torch.where(ok, rv, 1.0)
+    ok = ok & (t > EPSILON)
+    dx = fma(t, v_ue0, x_ue0) - x3
+    dy = fma(t, v_ep, x_ep) - y3
+    l1 = fma(y2 - y3, dx, (x3 - x2) * dy) * inv_den
+    l2 = fma(y3, dx, (0.0 - x3) * dy) * inv_den
+    l3 = (1.0 - l1) - l2
+    for lam in (l1, l2, l3):
+        ok = ok & (lam >= -EPSILON) & (lam <= 1.0 + EPSILON)
+    # the per-ray bounding-sphere gate: the ones solve enforces one of the
+    # D-2 plane constraints, so hits far off the plane are culled as the
+    # C's trace() culls them
+    bc = [prm[..., 6 * D + 11 + d] for d in range(D)]
+    oc2 = (dot(o, o) - 2.0 * dot(o, bc)) + dot(bc, bc)
+    voc = dot(v, o) - dot(v, bc)
+    voc2 = voc * voc               # used twice: XLA does not contract it
+    desc = (voc2 - oc2) + prm[..., 7 * D + 11]
+    ok = ok & (desc >= 0.0) & ~((voc > 0.0) & (voc2 > desc))
+    if gates is not None:
+        ok = ok & _gate_pierced(*gates, o, v, D, gates[0].shape[-3])
+    t = torch.where(ok, t, BIG)
+    if not want_normal:
+        return t, None
+    od = [o[d] - v0[d] for d in range(D)]
+    d0_ue0, d0_ep = dot(od, ue0), dot(od, ep)
+    nrm = []
+    for d in range(D):
+        vn = dot([prm[..., 3 * D + 11 + i * D + d] for i in range(3)],
+                 [l1, l2, l3])
+        on = fma(ep[d], d0_ep, fma(ue0[d], d0_ue0, v0[d]))
+        nrm.append(torch.where(use_n > 0.0, vn, o[d] - on).expand(t.shape))
+    return t, nrm
+
+
 def _eval(scn: DeviceScene, fam, rows, o, v, want_normal):
     """Family solve of the leaves at local ``rows`` (any shape that
     broadcasts against the ray components)."""
     D = scn.dim
+    if fam == "fct":
+        gates = (scn.fgt[rows], scn.fgp[rows]) if scn.b_fct else None
+        return _facet_eval(scn.fct[rows], gates, o, v, D, want_normal)
+    if fam == "hf":
+        gates = (scn.hgt[rows], scn.hgp[rows]) if scn.b_hf else None
+        return _hfacet_eval(scn.hf[rows], gates, o, v, D, want_normal)
     if fam == "sph":
         prm = scn.sph[rows]
         return _sphere_eval([prm[..., d] for d in range(D)], prm[..., D],
@@ -421,15 +586,13 @@ def _eval(scn: DeviceScene, fam, rows, o, v, want_normal):
         scn.qoff[rows], scn.qslab[rows], gates, o, v, D, A, want_normal)
 
 
-def _tile_candidates(scn, lists, counts, tiles, col, off):
-    """Local rows [Tc, 1, K] of one family's candidates for a run of tiles
-    and their validity mask (K = the longest list among those tiles)."""
+def _tile_candidates(lists, counts, tiles, col, off, k0, k1):
+    """Local rows [Tc, 1, k1-k0] of one family's candidates k0..k1-1 for
+    a run of tiles and their validity mask."""
     cnt = counts[tiles, col]
-    k = int(cnt.max())
-    if k == 0:
-        return None, None
-    valid = torch.arange(k, device=lists.device)[None, :] < cnt[:, None]
-    rows = torch.where(valid, lists[tiles, off:off + k] - off, 0).long()
+    valid = torch.arange(k0, k1, device=lists.device)[None, :] < cnt[:, None]
+    rows = torch.where(valid, lists[tiles, off + k0:off + k1] - off,
+                       0).long()
     return rows[:, None, :], valid[:, None, :]
 
 
@@ -440,14 +603,21 @@ def _ray_chunks(R):
 
 
 def _closest_ref(scn: DeviceScene, lists, counts, o, v, excl=None,
-                 first_rank=None):
-    """Per ray, the closest hit over its tile's candidate list in
-    global-id order with a strict ``<`` (an earlier gid wins a tie:
-    first-index argmin; NaN never wins).  o / v: D components, each a
-    per-ray [R] tensor or a 0-d scalar shared by all rays.  ``excl`` [R]:
-    a candidate of that material is skipped (closest mode); ``first_rank``
-    [R]: an infinite candidate ranked after it is skipped (the point-light
-    shadow truncation, pallas_trace L958-982).
+                 first_rank=None, reach=None, live=None):
+    """Per ray, the closest hit over its tile's candidate list in list
+    order with a strict ``<`` (an earlier candidate wins a tie: first-index
+    argmin; NaN never wins).  o / v: D components, each a per-ray [R]
+    tensor or a 0-d scalar shared by all rays.  ``excl`` [R]: a candidate
+    of that material is skipped (closest mode); ``first_rank`` [R]: an
+    infinite candidate ranked after it is skipped (the point-light shadow
+    truncation, pallas_trace L958-982).
+
+    ``reach`` [n_tiles, N] (cull_lists' want_reach): the early exit.  A
+    candidate whose reach exceeds the ray's best t before it is skipped,
+    and so is every candidate of a ``live`` False lane.  With reach a
+    lower bound of the candidate's t, the best t before a candidate is the
+    running minimum over all candidates before it, so the skip is a mask;
+    the winners are those of the full walk.
 
     Returns (t [R] (BIG on a miss), mat [R] i32 (-1), family index [R]
     (-1 on a miss), local row [R])."""
@@ -463,40 +633,47 @@ def _closest_ref(scn: DeviceScene, lists, counts, o, v, excl=None,
 
     for r0, r1, tiles in _ray_chunks(R):
         nt = len(tiles)
+        tiles = tiles.to(dev)
         oc = [per_ray(x, r0, r1, nt) for x in o]
         vc = [per_ray(x, r0, r1, nt) for x in v]
-        ts, rows_all, fam_all = [], [], []
+        t1 = torch.full((nt, RT), BIG, dtype=torch.float32, device=dev)
+        f1 = torch.full((nt, RT), -1, dtype=torch.long, device=dev)
+        w1 = torch.zeros((nt, RT), dtype=torch.long, device=dev)
         for fi, (fam, col, off, _) in enumerate(fams):
-            rows, valid = _tile_candidates(scn, lists, counts,
-                                           tiles.to(dev), col, off)
-            if rows is None:
-                continue
-            t, _ = _eval(scn, fam, rows, oc, vc, False)
-            if excl is not None:
-                t = torch.where(scn.mat[rows + off] == per_ray(excl, r0, r1,
-                                                               nt), BIG, t)
-            if first_rank is not None:
-                rank = scn.rank[rows + off]
-                elig = (rank >= NOTINF) | (rank <= per_ray(first_rank, r0, r1,
-                                                           nt))
-                t = torch.where(elig, t, BIG)
-            # invalid slots and NaN never win a strict '<' scan
-            ts.append(torch.where(valid & (t < BIG), t, BIG))
-            rows_all.append(rows.expand(t.shape))
-            fam_all.append(torch.full_like(rows.expand(t.shape), fi))
-        if not ts:
-            t_out[r0:r1] = BIG
-            fam_out[r0:r1] = -1
-            row_out[r0:r1] = 0
-            continue
-        tt = torch.cat(ts, -1)
-        k_w = tt.argmin(-1, keepdim=True)          # first minimal index
-        t_w = tt.gather(-1, k_w)[..., 0]
-        t_out[r0:r1] = t_w.reshape(-1)
-        row_out[r0:r1] = torch.cat(rows_all, -1).gather(-1, k_w).reshape(-1)
-        fam_out[r0:r1] = torch.where(
-            t_w < BIG, torch.cat(fam_all, -1).gather(-1, k_w)[..., 0],
-            -1).reshape(-1)
+            k_max = int(counts[tiles, col].max())
+            for k0 in range(0, k_max, _K_CHUNK):
+                rows, valid = _tile_candidates(
+                    lists, counts, tiles, col, off, k0,
+                    min(k_max, k0 + _K_CHUNK))
+                t, _ = _eval(scn, fam, rows, oc, vc, False)
+                if excl is not None:
+                    t = torch.where(scn.mat[rows + off]
+                                    == per_ray(excl, r0, r1, nt), BIG, t)
+                if first_rank is not None:
+                    rank = scn.rank[rows + off]
+                    t = torch.where((rank >= NOTINF)
+                                    | (rank <= per_ray(first_rank, r0, r1,
+                                                       nt)), t, BIG)
+                # invalid slots and NaN never win a strict '<' scan
+                t = torch.where(valid & (t < BIG), t, BIG)
+                if reach is not None:
+                    before = torch.cat([t1[..., None], t[..., :-1]],
+                                       -1).cummin(-1).values
+                    take = reach[tiles, off + k0:off + k0 + t.shape[-1]][
+                        :, None, :] <= before
+                    if live is not None:
+                        take = take & per_ray(live, r0, r1, nt)
+                    t = torch.where(take, t, BIG)
+                k_w = t.argmin(-1, keepdim=True)     # first minimal index
+                t_w = t.gather(-1, k_w)[..., 0]
+                b = t_w < t1
+                t1 = torch.where(b, t_w, t1)
+                f1 = torch.where(b, fi, f1)
+                w1 = torch.where(b, rows.expand(t.shape).gather(-1, k_w)[
+                    ..., 0], w1)
+        t_out[r0:r1] = t1.reshape(-1)
+        fam_out[r0:r1] = f1.reshape(-1)
+        row_out[r0:r1] = w1.reshape(-1)
     mat = torch.full((R,), -1, dtype=torch.int32, device=dev)
     for fi, (_, _, off, _) in enumerate(fams):
         sel = fam_out == fi
@@ -509,21 +686,26 @@ def _closest_ref(scn: DeviceScene, lists, counts, o, v, excl=None,
 # kernel 1: closest hit
 
 
-def trace_closest_ref(scn: DeviceScene, o, v, aux, lists, counts):
+def trace_closest_ref(scn: DeviceScene, o, v, aux, lists, counts,
+                      reach=None, live=None):
     """Plain twin of the trace_closest kernel: per ray, the closest hit
     over its tile's candidate list with the hit-local re-solve, strict
-    ``<`` in global-id order, candidates of the excluded material ``aux``
+    ``<`` in list order, candidates of the excluded material ``aux``
     skipped; then the winner's normal and its 8 material properties
     (zeros on a miss).
 
-    o, v [R, D] f32; aux [R] i32; lists/counts from cull_lists.
+    o, v [R, D] f32; aux [R] i32; lists/counts from cull_lists.  With
+    ``reach`` (cull_lists' want_reach) and ``live`` [R] bool the walk
+    takes the early exit (see _closest_ref): a live lane's winner is the
+    full walk's, a dead lane returns a miss.
     Returns t [R] f32 (BIG on a miss), mat [R] i32 (-1), nrm [R, D],
     props [R, N_PROPS]."""
     R, D = o.shape
     oc = [o[:, d] for d in range(D)]
     vc = [v[:, d] for d in range(D)]
     t, mat, win_fam, win_row = _closest_ref(scn, lists, counts, oc, vc,
-                                            excl=aux)
+                                            excl=aux, reach=reach,
+                                            live=live)
     nrm = [torch.zeros(R, device=o.device) for _ in range(D)]
     for fi, (fam, _, _, _) in enumerate(_families(scn)):
         sel = win_fam == fi
@@ -556,34 +738,48 @@ def _check_rays(scn, o, v, lists, counts):
     _check("counts", counts, (R // RT, N_FAMS), torch.int32, dev)
 
 
-def _on_card(x):
+def _entry(x, name, dim):
+    """The kernel library's entry point ``name`` for dimension ``dim``
+    (one translation unit per D, kernels/build.py)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    from ndt_tpu_torch.kernels.build import load_library
+    from ndt_tpu_torch.kernels.build import DIMS, load_library
 
-    return load_library()
+    if dim not in DIMS:
+        raise ValueError(f"no kernel instance for D = {dim} (built: {DIMS})")
+    return getattr(load_library(), f"{name}_d{dim}")
 
 
-def trace_closest(scn: DeviceScene, o, v, aux, lists, counts):
+def trace_closest(scn: DeviceScene, o, v, aux, lists, counts, reach=None,
+                  live=None):
     """Closest hit (see trace_closest_ref): the twin on the CPU, the
-    ``trace_closest`` CUDA kernel on the card."""
+    ``trace_closest`` CUDA kernel on the card.  ``reach`` and ``live``
+    come together or not at all."""
     R, D = o.shape
     _check_rays(scn, o, v, lists, counts)
     _check("aux", aux, (R,), torch.int32, scn.device)
+    if (reach is None) != (live is None):
+        raise ValueError("the early exit takes both reach and live")
+    if reach is not None:
+        _check("reach", reach, lists.shape, torch.float32, scn.device)
+        _check("live", live, (R,), torch.bool, scn.device)
     if o.device.type == "cpu":
-        return trace_closest_ref(scn, o, v, aux, lists, counts)
-    lib = _on_card(o)
+        return trace_closest_ref(scn, o, v, aux, lists, counts, reach, live)
+    fn = _entry(o, "ndt_trace_closest", scn.dim)
     t = torch.empty(R, dtype=torch.float32, device=o.device)
     m = torch.empty(R, dtype=torch.int32, device=o.device)
     nrm = torch.empty((R, D), dtype=torch.float32, device=o.device)
     props = torch.empty((R, N_PROPS), dtype=torch.float32, device=o.device)
     tables = _c_tables(scn)
-    err = lib.ndt_trace_closest(
-        ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists),
-        _p(counts), lists.shape[1], _p(scn.props), _p(t), _p(m), _p(nrm),
-        _p(props), R, _stream())
+    err = fn(ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists),
+             _p(counts), _p(reach), _p(live), lists.shape[1], _p(scn.props),
+             _p(t), _p(m), _p(nrm), _p(props), R, _stream())
     _raise_on(err, "trace_closest")
     launch_counts["trace_gated" if is_gated(scn) else "trace_closest"] += 1
+    if has_facets(scn):
+        launch_counts["trace_facets"] += 1
+    if reach is not None:
+        launch_counts["trace_early_exit"] += 1
     return t, m, nrm, props
 
 
@@ -808,16 +1004,16 @@ def shade_carry(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
         return shade_carry_ref(scn, o, v, t, mat, nrm, props, lvec, culls,
                                kinds, specular, w, frac, color, live,
                                escalate)
-    lib = _on_card(o)
+    fn = _entry(o, "ndt_shade", scn.dim)
     o2, v2 = torch.empty_like(o), torch.empty_like(v)
     w2, f2, c2 = (torch.empty_like(x) for x in (w, frac, color))
     nxt = torch.empty(R, dtype=torch.bool, device=dev)
     taint = torch.empty(R, dtype=torch.bool, device=dev)
     mode = _SHADE_ESCALATE if escalate else _SHADE_CARRY
-    _launch_shade(lib, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
+    _launch_shade(fn, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
                   specular, mode, (w, frac, color, live, o2, v2, w2, f2, c2,
                                    nxt, taint, None))
-    _count_shade("shade_escalate" if escalate else "shade_carry", kinds)
+    _count_shade(scn, "shade_escalate" if escalate else "shade_carry", kinds)
     out = (o2, v2, w2, f2, c2, nxt)
     return out + (taint,) if escalate else out
 
@@ -830,28 +1026,30 @@ def shade_local(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
     if o.device.type == "cpu":
         return shade_local_ref(scn, o, v, t, mat, nrm, props, lvec, culls,
                                kinds, specular)
-    lib = _on_card(o)
+    fn = _entry(o, "ndt_shade", scn.dim)
     local = torch.empty((o.shape[0], 3), dtype=torch.float32,
                         device=o.device)
-    _launch_shade(lib, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
+    _launch_shade(fn, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
                   specular, _SHADE_LOCAL, (None,) * 11 + (local,))
-    _count_shade("shade_local", kinds)
+    _count_shade(scn, "shade_local", kinds)
     return local
 
 
-def _count_shade(mode_name, kinds):
+def _count_shade(scn, mode_name, kinds):
     launch_counts[mode_name] += 1
     if "p" in kinds:
         launch_counts["shade_point"] += 1
     if "s" in kinds:
         launch_counts["shade_spot"] += 1
+    if has_facets(scn):
+        launch_counts["shade_facets"] += 1
 
 
 # shade kernel modes (csrc/shade.cu)
 _SHADE_CARRY, _SHADE_ESCALATE, _SHADE_LOCAL = 0, 1, 2
 
 
-def _launch_shade(lib, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
+def _launch_shade(fn, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
                   specular, mode, io):
     """io: (w, frac, color, live, o', v', w', frac', color', nxt, taint,
     local), None where the mode has no such array."""
@@ -859,7 +1057,7 @@ def _launch_shade(lib, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
     lists = torch.stack([c[0] for c in culls]).contiguous()
     counts = torch.stack([c[1] for c in culls]).contiguous()
     tables = _c_tables(scn)
-    err = lib.ndt_shade(
+    err = fn(
         ctypes.addressof(tables), _p(o), _p(v), _p(t), _p(mat), _p(nrm),
         _p(props), _p(lvec), "".join(kinds).encode(), len(kinds),
         _p(lists), _p(counts), lists.shape[2], int(bool(specular)),
@@ -871,15 +1069,18 @@ def _launch_shade(lib, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
 # ctypes plumbing
 
 
+_TABLE_PTRS = ("sph", "pln", "qbase", "qaxes", "qlo", "qhi", "qoff", "qslab",
+               "qgt", "qgp", "qgi", "fct", "fgt", "fgp", "hf", "hgt", "hgp",
+               "mat", "rank", "inf")
+_TABLE_INTS = ("n_sph", "n_pln", "n_quad", "n_fct", "n_hf", "a_quad",
+               "b_gate", "b_fct", "b_hf", "n_inf", "dim")
+
+
 class NdtTables(ctypes.Structure):
     """Mirror of ``struct NdtTables`` in csrc/families.cuh."""
 
-    _fields_ = [(name, ctypes.c_void_p) for name in (
-        "sph", "pln", "qbase", "qaxes", "qlo", "qhi", "qoff", "qslab", "qgt",
-        "qgp", "qgi", "mat", "rank", "inf")] + [
-            (name, ctypes.c_int) for name in (
-                "n_sph", "n_pln", "n_quad", "a_quad", "b_gate", "n_inf",
-                "dim")]
+    _fields_ = [(name, ctypes.c_void_p) for name in _TABLE_PTRS] + [
+        (name, ctypes.c_int) for name in _TABLE_INTS]
 
 
 def _p(x):
@@ -892,15 +1093,13 @@ def _stream():
 
 def _c_tables(scn: DeviceScene) -> NdtTables:
     return NdtTables(
-        *(getattr(scn, k).data_ptr() for k in (
-            "sph", "pln", "qbase", "qaxes", "qlo", "qhi", "qoff", "qslab",
-            "qgt", "qgp", "qgi", "mat", "rank", "inf")),
-        scn.n_sph, scn.n_pln, scn.n_quad, scn.a_quad, scn.b_gate,
-        len(scn.inf_gids), scn.dim)
+        *(getattr(scn, k).data_ptr() for k in _TABLE_PTRS),
+        *(len(scn.inf_gids) if k == "n_inf" else getattr(scn, k)
+          for k in _TABLE_INTS))
 
 
 def _raise_on(err, name):
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
-                           "(-1: no kernel instance for this D / A; -2: a "
+                           "(-1: no kernel instance for this A; -2: a "
                            "light kind the kernel does not take)")

@@ -20,7 +20,7 @@ from ndt_tpu_torch.constants import BIG, EPSILON
 from ndt_tpu_torch.mathnd import fma, sqrt
 from ndt_tpu_torch.render.kernels import (RT, cull_lists, light_fields,
                                           shade_carry, shade_local,
-                                          trace_closest)
+                                          trace_closest, use_early_exit)
 from ndt_tpu_torch.scene.compile import DeviceScene
 from ndt_tpu_torch.scene.model import LightType
 
@@ -119,14 +119,22 @@ def _shadow_culls(scn, kinds, lvec, o_p, v_p, t, live_p):
 
 def _trace_padded(scn, o, v, live):
     """Pad to whole tiles, cull, closest hit: (o_p, v_p, live_p, t, mat,
-    nrm, props), every array padded."""
+    nrm, props), every array padded.  A scene of EE_MIN_OBJECTS leaves or
+    more walks reach-sorted lists with the early exit (pallas_trace
+    L1782-1790); a dead lane's result is then a miss."""
     R = o.shape[0]
     o_p, v_p, _ = _pad_rays(o, v, RT)
     live_p = _pad_live(live, o_p.shape[0], R)
     aux = torch.full((o_p.shape[0],), -1, dtype=torch.int32,
                      device=o.device)
-    lists, counts = cull_lists(scn, o_p, v_p, live=live_p)
-    hits = trace_closest(scn, o_p, v_p, aux, lists, counts)
+    if use_early_exit(scn):
+        lists, counts, reach = cull_lists(scn, o_p, v_p, live=live_p,
+                                          want_reach=True)
+        hits = trace_closest(scn, o_p, v_p, aux, lists, counts, reach,
+                             live_p)
+    else:
+        lists, counts = cull_lists(scn, o_p, v_p, live=live_p)
+        hits = trace_closest(scn, o_p, v_p, aux, lists, counts)
     return (o_p, v_p, live_p) + hits
 
 

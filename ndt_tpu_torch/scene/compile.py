@@ -6,39 +6,49 @@ values as the JAX package's blocks:
 
   SphereBlock   - sphere                                    (sphere.c)
   PlaneBlock    - hplane + hdisk (radius2 = inf for planes) (hplane.c, hdisk.c)
-  QuadricBlock  - cylinder and orthotope: project out the A axes, solve the
-                  quadratic in the complement, slab-test the axis
-                  projections (cylinder.c:104-210, orthotope.c:150-302);
-                  orthotopes are thin slabs (qc_off = EPSILON) with the
-                  closest-approach fallback and kd leaf-cell gates
+  QuadricBlock  - cylinder, hcylinder and orthotope: project out the A
+                  axes, solve the quadratic in the complement, slab-test the
+                  axis projections (cylinder.c:104-210, hcylinder.c:132-244,
+                  orthotope.c:150-302); orthotopes are thin slabs (qc_off =
+                  EPSILON) with the closest-approach fallback and kd
+                  leaf-cell gates
+  FacetBlock    - triangles by plane closest approach and the vertex-angle
+                  inside test (facet.c:166-269), kd-gated
+  HFacetBlock   - triangles by the ones-vector linear solve and the
+                  barycentric inside test (hfacet.c:211-310), kd-gated
+
+An hcube expands into one orthotope leaf per m-face, m = 2..D-1
+(hcube.c:33-152); every face reports the cube's material and kd item
+(hcube.c:244-247).
 
 The blocks are numpy dataclasses on the host.  ``to_device`` turns them into
-the tables the CUDA kernels and their plain twins read: the sphere / plane /
-quadric part of ``pallas_trace.pack_params`` (bounds rows with r2 = -1 for
-infinite leaves, padded geometry boxes for the tile cull, the hplane radius2
-clamp, material ids, shadow ranks, the material property table, the quadric
-gate boxes deduped per kd item), kept as tensors in global memory rather
-than SMEM-flattened rows.
+the tables the CUDA kernels and their plain twins read: the values of
+``pallas_trace.pack_params`` (bounds rows with r2 = -1 for infinite leaves,
+padded geometry boxes for the tile cull, the hplane radius2 clamp, material
+ids, shadow ranks, the material property table, the quadric gate boxes
+deduped per kd item, the facet and hfacet rows), kept as tensors in global
+memory rather than SMEM-flattened rows; the facet and hfacet gate boxes are
+[n, B, D, 2] tables beside their rows.
 
 ``scene_from_numpy`` carries a scene compiled by the JAX package over, so a
 test can run both packages on identical data.
 
-Not ported yet (ROADMAP Queue 1 item 10): facet / hfacet blocks, hcube face
-expansion, clusters, hcylinder quadrics, and the budgeted kd builder for
-scenes past _KD_EXACT_MAX kd items.  SMEM chunking is a TPU limit the port
-does not have: its tables sit in global memory whole.
+Not ported yet (ROADMAP Queue 1 item 10): clusters and the budgeted kd
+builder for scenes past _KD_EXACT_MAX kd items.  SMEM chunking is a TPU
+limit the port does not have: its tables sit in global memory whole.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import warnings
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from ndt_tpu_torch import mathnd
+from ndt_tpu_torch import mathnd, native
 from ndt_tpu_torch.constants import BIG, EPSILON
 from ndt_tpu_torch.scene.model import LightType, Object, Scene
 from ndt_tpu_torch.utils.kdtree import build_c_exact
@@ -94,6 +104,52 @@ class QuadricBlock:
 
 
 @dataclasses.dataclass
+class FacetBlock:
+    verts: np.ndarray        # [n, 3, D]
+    edges: np.ndarray        # [n, 3, D] edge[i] = v[(i+1)%3] - v[i]
+    basis: np.ndarray        # [n, 2, D] orthonormal plane basis
+    cos_angles: np.ndarray   # [n, 3] cosines of the interior vertex angles
+    normal: np.ndarray       # [n, D] dir[0], used uniformly (facet.c:257)
+    # kd leaf-cell gate: the facet's EPSILON surface shell (facet.c:239-246)
+    # is reachable only where the reference's traversal tests the item;
+    # the layout of QuadricBlock's
+    gate_tlo: np.ndarray     # [n, B, D]
+    gate_thi: np.ndarray
+    gate_plo: np.ndarray
+    gate_phi: np.ndarray
+    mat_id: np.ndarray
+    b_center: np.ndarray
+    b_radius: np.ndarray
+    shadow_rank: np.ndarray
+
+
+@dataclasses.dataclass
+class HFacetBlock:
+    verts: np.ndarray        # [n, 3, D]
+    ue0: np.ndarray          # [n, D] unit edge0
+    ep: np.ndarray           # [n, D] unit edge_perp
+    sum_ue0: np.ndarray      # [n] ones . ue0
+    sum_ep: np.ndarray       # [n] ones . ep
+    bary_x2: np.ndarray      # [n] ue0 . edge0
+    bary_y2: np.ndarray      # [n] ep . edge0
+    bary_x3: np.ndarray      # [n] ue0 . edge2r (edge2r = v2 - v0)
+    bary_y3: np.ndarray      # [n] ep . edge2r
+    use_normals: np.ndarray  # [n] flag[0]
+    vnormals: np.ndarray     # [n, 3, D]
+    # kd leaf-cell gate: for D > 3 the ones-contraction solve hits a whole
+    # hypersurface; the C renders the part whose rays reach a leaf cell
+    # holding the item
+    gate_tlo: np.ndarray     # [n, B, D]
+    gate_thi: np.ndarray
+    gate_plo: np.ndarray
+    gate_phi: np.ndarray
+    mat_id: np.ndarray
+    b_center: np.ndarray
+    b_radius: np.ndarray
+    shadow_rank: np.ndarray
+
+
+@dataclasses.dataclass
 class LightData:
     """One compiled light (scene.h:36-49), numpy on the host."""
 
@@ -117,6 +173,8 @@ class SceneData:
     spheres: Optional[SphereBlock] = None
     planes: Optional[PlaneBlock] = None
     quadrics: Optional[QuadricBlock] = None
+    facets: Optional[FacetBlock] = None
+    hfacets: Optional[HFacetBlock] = None
     color: np.ndarray = None          # [M, 3] materials, indexed by mat_id
     reflect: np.ndarray = None        # [M, 3]
     transparent: np.ndarray = None    # [M] 0/1
@@ -128,12 +186,13 @@ class SceneData:
 
     @property
     def blocks(self):
-        return [b for b in (self.spheres, self.planes, self.quadrics)
-                if b is not None]
+        return [b for b in (self.spheres, self.planes, self.quadrics,
+                            self.facets, self.hfacets) if b is not None]
 
 
 _BLOCK_TYPES = {"spheres": SphereBlock, "planes": PlaneBlock,
-                "quadrics": QuadricBlock}
+                "quadrics": QuadricBlock, "facets": FacetBlock,
+                "hfacets": HFacetBlock}
 
 
 # --------------------------------------------------------------------------
@@ -156,7 +215,35 @@ class _Leaf:
 
 
 _LEAF_KIND = {"sphere": "sphere", "hplane": "plane", "hdisk": "plane",
-              "cylinder": "quadric", "orthotope": "quadric"}
+              "cylinder": "quadric", "hcylinder": "quadric",
+              "orthotope": "quadric", "hcube": "quadric", "facet": "facet",
+              "hfacet": "hfacet"}
+
+
+def _hcube_faces(cube: Object) -> List[Object]:
+    """The hcube's orthotope m-faces for m = 2..D-1, as add_faces builds
+    them (hcube.c:33-152): each m-subset of the cube's D directions spans
+    2^(D-m) faces placed at every corner combination of the others."""
+    d = cube.dim
+    center = cube.pos[0]
+    faces = []
+    for m in range(2, d):
+        for dirs in itertools.combinations(range(d), m):
+            others = [i for i in range(d) if i not in dirs]
+            for bits in range(1 << (d - m)):
+                pos = center.copy()
+                for bi, i in enumerate(others):
+                    value = (bits >> bi) & 1
+                    pos = pos + cube.dir[i] * (cube.size[i] * (value - 0.5))
+                for i in dirs:
+                    pos = pos + cube.dir[i] * (-0.5 * cube.size[i])
+                face = Object(d, "orthotope", f"{cube.name}:{m}d-face")
+                face.add_flag(m)
+                for i in dirs:
+                    face.add_dir(cube.dir[i] * cube.size[i])
+                face.add_pos(pos)
+                faces.append(face)
+    return faces
 
 
 def _item_aabb(obj: Object, dim):
@@ -173,9 +260,10 @@ def _item_aabb(obj: Object, dim):
 
 
 def _flatten(objects: List[Object], dim: int):
-    """One material and one leaf per object (the ported families have no
-    composite types), each with its bounding sphere fit (object.c:582-603),
-    plus the kd ITEM list in the reference's object_kdlist_add order.
+    """One material per object and its leaves (one, or an hcube's faces,
+    all with the cube's material and kd item), each object with its
+    bounding sphere fit (object.c:582-603), plus the kd ITEM list in the
+    reference's object_kdlist_add order.
 
     Top-level infinite objects go to the trace-always list
     (kd-tree.c:446-460), not the tree.  The JAX compiler also walks
@@ -198,8 +286,41 @@ def _flatten(objects: List[Object], dim: int):
             kd_items.append(_item_aabb(obj, dim))
             item = len(kd_items) - 1
         materials.append(obj)
-        leaves.append(_Leaf(kind, obj, len(materials) - 1, kd_item=item))
+        mid = len(materials) - 1
+        parts = _hcube_faces(obj) if obj.type_name == "hcube" else [obj]
+        leaves.extend(_Leaf(kind, part, mid, kd_item=item) for part in parts)
     return leaves, materials, kd_items
+
+
+def _batch_bounds(leaves):
+    """Fit the bounding sphere of every leaf that has none yet (the hcube
+    faces) in one threaded host call (native.optimal_spheres), with
+    Object.get_bounds' +EPSILON pad and the same bits per leaf; without
+    the host library each leaf fits on its own."""
+    todo = {}
+    for leaf in leaves:
+        if leaf.obj.bounds_radius is None:
+            todo.setdefault(id(leaf.obj), leaf.obj)
+    fit, pts, rad, offs = [], [], [], [0]
+    for obj in todo.values():
+        bp = obj.bounding_points()
+        if not bp:
+            obj.get_bounds()
+            continue
+        pts.extend(np.asarray(c, np.float64) for c, _ in bp)
+        rad.extend(float(r) for _, r in bp)
+        offs.append(offs[-1] + len(bp))
+        fit.append(obj)
+    res = (native.optimal_spheres(np.stack(pts), np.asarray(rad),
+                                  np.asarray(offs, np.int64), EPSILON)
+           if fit else None)
+    if res is None:
+        for obj in fit:
+            obj.get_bounds()
+        return
+    for obj, c, r in zip(fit, *res):
+        obj.bounds_center = c
+        obj.bounds_radius = float(r) + (EPSILON if r > 0.0 else 0.0)
 
 
 def _bounds_arrays(leaves, dt):
@@ -227,9 +348,15 @@ _KD_EXACT_MAX = 256
 
 
 def _leaf_gated(leaf) -> bool:
-    """Orthotope slabs: their EPSILON shell (qc -= EPSILON, orthotope.c:203,
-    closest-approach fallback orthotope.c:233-275) lights a 0.01-thick halo
-    only where the reference's traversal tests the item."""
+    """Leaves whose acceptance depends on the reference's traversal:
+    orthotope slabs (their EPSILON shell, qc -= EPSILON, orthotope.c:203,
+    and closest-approach fallback, orthotope.c:233-275, light a 0.01-thick
+    halo), facets (the same EPSILON surface-distance shell,
+    facet.c:239-246) and hfacets (for D > 3 the ones-contraction solve,
+    hfacet.c:238-264, hits a whole hypersurface); each is visible only
+    where the traversal tests its item."""
+    if leaf.kind in ("facet", "hfacet"):
+        return True
     return leaf.kind == "quadric" and leaf.obj.type_name == "orthotope"
 
 
@@ -265,35 +392,37 @@ def _pack_gate_tables(leaves, dim, gates):
     is gated.  Returns (tlo, thi, plo, phi)."""
     n = len(leaves)
     boxes = [None] * n
+    per_item = {}          # kd item -> its [B_k, D, 2] boxes, built once
     b_max = 0
     if gates is not None:
         cells = gates[0]
         for k, leaf in enumerate(leaves):
             if not _leaf_gated(leaf) or leaf.kd_item < 0:
                 continue
-            bx = cells[leaf.kd_item]
-            if len(bx) > _GATE_MAX:
-                warnings.warn(
-                    f"some leaf-cell gates exceed {_GATE_MAX} kd cells: "
-                    "falling back to their union box (conservative vs "
-                    "the C's exact traversal)", RuntimeWarning, stacklevel=2)
-                arr = np.stack(bx)                        # [B_k, D, 2]
-                bx = [np.stack([arr[:, :, 0].min(0), arr[:, :, 1].max(0)],
-                               axis=-1)]
-            boxes[k] = bx
-            b_max = max(b_max, len(bx))
+            if leaf.kd_item not in per_item:
+                arr = np.stack(cells[leaf.kd_item])       # [B_k, D, 2]
+                if len(arr) > _GATE_MAX:
+                    warnings.warn(
+                        f"some leaf-cell gates exceed {_GATE_MAX} kd cells: "
+                        "falling back to their union box (conservative vs "
+                        "the C's exact traversal)", RuntimeWarning,
+                        stacklevel=2)
+                    arr = np.stack([arr[:, :, 0].min(0),
+                                    arr[:, :, 1].max(0)], axis=-1)[None]
+                per_item[leaf.kd_item] = arr
+            boxes[k] = per_item[leaf.kd_item]
+            b_max = max(b_max, len(boxes[k]))
     gate_tlo = np.full((n, b_max, dim), -BIG)
     gate_thi = np.full((n, b_max, dim), BIG)
     gate_plo = np.full((n, b_max, dim), -BIG)
     gate_phi = np.full((n, b_max, dim), BIG)
     if b_max:
         _, bb_lo, bb_hi = gates
-        for k, bx in enumerate(boxes):
-            if bx is None:
+        for k, arr in enumerate(boxes):
+            if arr is None:
                 continue
-            cl = np.stack([c[:, 0] for c in bx])          # [B_k, D]
-            ch = np.stack([c[:, 1] for c in bx])
-            nb = len(bx)
+            cl, ch = arr[:, :, 0], arr[:, :, 1]           # [B_k, D]
+            nb = len(arr)
             gate_plo[k, :nb] = np.clip(cl, -BIG, BIG)
             gate_phi[k, :nb] = np.clip(ch, -BIG, BIG)
             gate_tlo[k, :nb] = np.clip(np.maximum(cl, bb_lo), -BIG, BIG)
@@ -327,13 +456,23 @@ def _build_planes(leaves, dim, dt, gates=None):
 
 def _quadric_params(obj: Object):
     """(base, unit axes, lo, hi, qc_off, is_slab) of the prepare() functions
-    (cylinder.c:85-102, orthotope.c:35-45 and 135-144, 203)."""
+    (cylinder.c:85-102, hcylinder.c:38-45 and 118-126, orthotope.c:35-45
+    and 135-144, 203)."""
     if obj.type_name == "cylinder":
         axis = mathnd.unitize(obj.pos[1] - obj.pos[0])
         length = float(mathnd.dist(obj.pos[1], obj.pos[0]))
         infinite = len(obj.flag) > 1 and obj.flag[1] != 0
         return (obj.pos[0], [axis], [-BIG if infinite else 0.0],
                 [BIG if infinite else length], obj.size[0] ** 2, False)
+    if obj.type_name == "hcylinder":
+        infinite = len(obj.flag) > 0 and obj.flag[0] != 0
+        axes, lo, hi = [], [], []
+        for p in obj.pos[1:]:
+            axes.append(mathnd.unitize(p - obj.pos[0]))
+            length = float(mathnd.dist(p, obj.pos[0]))
+            lo.append(-BIG if infinite else -EPSILON)
+            hi.append(BIG if infinite else length + EPSILON)
+        return obj.pos[0], axes, lo, hi, obj.size[0] ** 2, False
     m = obj.flag[0]                                  # orthotope
     axes = [mathnd.unitize(obj.dir[i]) for i in range(m)]
     hi = [float(mathnd.l2norm(obj.dir[i])) + EPSILON for i in range(m)]
@@ -374,10 +513,64 @@ def _build_quadrics(leaves, dim, dt, gates=None):
         **_bounds_arrays(leaves, dt))
 
 
+def _gated_block(leaves, dim, dt, gates, **fields):
+    """The gate boxes, materials and bounds every gated block carries."""
+    gate_tlo, gate_thi, gate_plo, gate_phi = _pack_gate_tables(leaves, dim,
+                                                               gates)
+    return dict(gate_tlo=gate_tlo.astype(dt), gate_thi=gate_thi.astype(dt),
+                gate_plo=gate_plo.astype(dt), gate_phi=gate_phi.astype(dt),
+                mat_id=_mat_ids(leaves), **_bounds_arrays(leaves, dt),
+                **{k: a.astype(dt) for k, a in fields.items()})
+
+
+def _build_facets(leaves, dim, dt, gates=None):
+    n = len(leaves)
+    verts = np.stack([np.stack(leaf.obj.pos[:3]) for leaf in leaves])
+    edges = np.stack([verts[:, (i + 1) % 3] - verts[:, i]
+                      for i in range(3)], axis=1)
+    basis = np.zeros((n, 2, dim))
+    cos_angles = np.zeros((n, 3))
+    for k in range(n):
+        basis[k] = mathnd.orthogonalize(edges[k, 0], edges[k, 1])
+        for i in range(3):                          # facet.c:66-70
+            j, kk = (i + 1) % 3, (i + 2) % 3
+            cos_angles[k, i] = np.cos(mathnd.angle3(
+                verts[k, kk], verts[k, i], verts[k, j]))
+    normal = np.stack([leaf.obj.dir[0] for leaf in leaves])
+    return FacetBlock(**_gated_block(
+        leaves, dim, dt, gates, verts=verts, edges=edges, basis=basis,
+        cos_angles=cos_angles, normal=normal))
+
+
+def _build_hfacets(leaves, dim, dt, gates=None):
+    n = len(leaves)
+    verts = np.stack([np.stack(leaf.obj.pos[:3]) for leaf in leaves])
+    edge0 = verts[:, 1] - verts[:, 0]
+    edge2r = verts[:, 2] - verts[:, 0]   # reversed edge[2] (hfacet.c:73-75)
+    ue0 = np.stack([mathnd.unitize(e) for e in edge0])
+    ep = np.zeros((n, dim))
+    for k in range(n):                   # hfacet.c:77-84
+        ep[k] = mathnd.unitize(edge2r[k] - mathnd.proj(edge2r[k], edge0[k]))
+    vnormals = np.zeros((n, 3, dim))
+    use_normals = np.zeros(n)
+    for k, leaf in enumerate(leaves):
+        use_normals[k] = float(leaf.obj.flag[0]) if leaf.obj.flag else 0.0
+        for i in range(min(3, len(leaf.obj.dir))):
+            vnormals[k, i] = leaf.obj.dir[i]
+    return HFacetBlock(**_gated_block(
+        leaves, dim, dt, gates, verts=verts, ue0=ue0, ep=ep,
+        sum_ue0=ue0.sum(-1), sum_ep=ep.sum(-1),
+        bary_x2=(ue0 * edge0).sum(-1), bary_y2=(ep * edge0).sum(-1),
+        bary_x3=(ue0 * edge2r).sum(-1), bary_y3=(ep * edge2r).sum(-1),
+        use_normals=use_normals, vnormals=vnormals))
+
+
 _BUILDERS = {
     "sphere": ("spheres", _build_spheres),
     "plane": ("planes", _build_planes),
     "quadric": ("quadrics", _build_quadrics),
+    "facet": ("facets", _build_facets),
+    "hfacet": ("hfacets", _build_hfacets),
 }
 
 
@@ -402,6 +595,7 @@ def compile_scene(scene: Scene, dtype=np.float32) -> SceneData:
     leaves, materials, kd_items = _flatten(scene.objects, scene.dim)
     if not leaves:
         raise ValueError("scene has no intersectable objects")
+    _batch_bounds(leaves)
 
     rank = 0                      # shadow scan ranks of infinite leaves
     for leaf in leaves:
@@ -434,12 +628,11 @@ def compile_scene(scene: Scene, dtype=np.float32) -> SceneData:
 def scene_from_numpy(sd) -> SceneData:
     """The port's SceneData from any object with the JAX ``SceneData``
     fields as numpy arrays (duck-typed: nothing of the JAX package is
-    imported).  Facet and hfacet blocks raise: the port has no kernel
-    for them yet."""
-    for fam in ("facets", "hfacets"):
-        if getattr(sd, fam, None) is not None:
-            raise NotImplementedError(
-                f"{fam} are not ported yet (ROADMAP Queue 1 item 10)")
+    imported).  Area lights raise, as in compile_lights."""
+    if any(int(lgt.kind) in (LightType.DISK, LightType.RECT)
+           for lgt in sd.lights):
+        raise NotImplementedError(
+            "area lights are not ported yet (ROADMAP Queue 1 item 10)")
     blocks = {}
     for field, cls in _BLOCK_TYPES.items():
         blk = getattr(sd, field)
@@ -499,10 +692,73 @@ def _gate_slots(quad):
     return qgi.reshape(-1).astype(np.int32), qgt[slots], qgp[slots]
 
 
+def _gate_boxes(blk):
+    """[n, B, D, 2] f32 t and position gate boxes of a facet / hfacet
+    block, (lo, hi) innermost: the values of pack_params' row-embedded
+    gate columns."""
+    f32 = np.float32
+    return (np.stack([np.asarray(blk.gate_tlo, f32),
+                      np.asarray(blk.gate_thi, f32)], axis=-1),
+            np.stack([np.asarray(blk.gate_plo, f32),
+                      np.asarray(blk.gate_phi, f32)], axis=-1))
+
+
+# row widths of the facet / hfacet tables (pallas_trace _facet_width /
+# _hfacet_width without the gate columns)
+def _facet_width(D):
+    return 10 * D + 11
+
+
+def _hfacet_width(D):
+    return 7 * D + 12
+
+
+def _facet_rows(fct):
+    """pack_params' facet rows: b0[D] b1[D] base[D] bb0 bb1 v0..v2[3D]
+    e0..e2[3D] vdote[3] edote[3] cosang[3] normal[D], from f64."""
+    verts = np.asarray(fct.verts, np.float64)
+    edges = np.asarray(fct.edges, np.float64)
+    basis = np.asarray(fct.basis, np.float64)
+    base = verts[:, 1, :]
+    n = verts.shape[0]
+    return np.concatenate([
+        basis[:, 0, :], basis[:, 1, :], base,
+        (base * basis[:, 0, :]).sum(1)[:, None],
+        (base * basis[:, 1, :]).sum(1)[:, None],
+        verts.reshape(n, -1), edges.reshape(n, -1),
+        (verts * edges).sum(2), (edges * edges).sum(2),
+        np.asarray(fct.cos_angles, np.float64),
+        np.asarray(fct.normal, np.float64)], axis=1).astype(np.float32)
+
+
+def _hfacet_rows(hf):
+    """pack_params' hfacet rows: v0[D] ue0[D] ep[D] sum_ue0 sum_ep v0_ue0
+    v0_ep v0_sum x2 y2 x3 y3 inv_den use_normals vn0..vn2[3D] b_center[D]
+    b_r2, from f64."""
+    verts = np.asarray(hf.verts, np.float64)
+    v0 = verts[:, 0, :]
+    ue0 = np.asarray(hf.ue0, np.float64)
+    ep = np.asarray(hf.ep, np.float64)
+    x2, y2, x3, y3 = (np.asarray(getattr(hf, f), np.float64)
+                      for f in ("bary_x2", "bary_y2", "bary_x3", "bary_y3"))
+    den = (y2 - y3) * (0.0 - x3) + (x3 - x2) * (0.0 - y3)
+    inv_den = 1.0 / np.where(np.abs(den) > 0, den, 1.0)
+    br = np.asarray(hf.b_radius, np.float64)
+    cols = [np.asarray(hf.sum_ue0, np.float64), np.asarray(hf.sum_ep,
+                                                            np.float64),
+            (v0 * ue0).sum(1), (v0 * ep).sum(1), v0.sum(1),
+            x2, y2, x3, y3, inv_den, np.asarray(hf.use_normals, np.float64)]
+    return np.concatenate(
+        [v0, ue0, ep] + [c[:, None] for c in cols]
+        + [np.asarray(hf.vnormals, np.float64).reshape(len(v0), -1),
+           np.asarray(hf.b_center, np.float64), (br * br)[:, None]],
+        axis=1).astype(np.float32)
+
+
 def pack_tables(sd: SceneData) -> dict:
     """float32 / int32 numpy tables, one row per leaf, in global-id order
-    (spheres, planes, quadrics) -- the values pack_params computes for
-    these families:
+    (spheres, planes, quadrics, facets, hfacets) -- the values pack_params
+    computes:
 
       sph [n_sph, D+1]: center, r^2
       pln [n_pln, 2D+1]: point, normal, min(r^2, BIG)
@@ -512,6 +768,9 @@ def pack_tables(sd: SceneData) -> dict:
       deduped t / position gate boxes, (lo, hi) innermost: every row of
       one kd item carries the same box set, so byte-equal rows share a
       slot (pack_params L1315-1339, np.unique order)
+      fct [n_fct, 10D+11], hf [n_hf, 7D+12]: the facet / hfacet rows
+      (pack_params L1369-1445 without the gate columns); fgt / fgp and
+      hgt / hgp [n, B, D, 2] their t / position gate boxes
       mat / rank [N] int32; bnd [N, D+1] bounding sphere (r^2 = -1 when
       infinite); aabb [N, 2, D] padded geometry box; props [M, 8]
       inf [n_inf, 2] int32: (gid, shadow rank) of the infinite leaves,
@@ -572,6 +831,31 @@ def pack_tables(sd: SceneData) -> dict:
                    qgi=np.zeros(0, np.int32),
                    qgt=np.zeros((0, 0, D, 2), f32),
                    qgp=np.zeros((0, 0, D, 2), f32))
+    no_gates = np.zeros((0, 0, D, 2), f32)
+    fct, hf = sd.facets, sd.hfacets
+    if fct is not None:
+        tab["fct"] = _facet_rows(fct)
+        tab["fgt"], tab["fgp"] = _gate_boxes(fct)
+        # facet hits pass the vertex-angle inside test (facet.c:149-164):
+        # they lie on the triangle to within the EPSILON shell
+        verts = np.asarray(fct.verts, np.float64)
+        aabbs.append(_aabb_pad(verts.min(1), verts.max(1)))
+    else:
+        tab.update(fct=np.zeros((0, _facet_width(D)), f32), fgt=no_gates,
+                   fgp=no_gates)
+    if hf is not None:
+        tab["hf"] = _hfacet_rows(hf)
+        tab["hgt"], tab["hgp"] = _gate_boxes(hf)
+        # D > 3 phantom hits lie off the triangle: the box circumscribes
+        # the bounding sphere, the reach the reference's sphere cull gives
+        bc = np.asarray(hf.b_center, np.float64)
+        br = np.asarray(hf.b_radius, np.float64)
+        brr = np.where(br < 0, BIG, br)[:, None]
+        aabbs.append(_aabb_pad(np.clip(bc - brr, -BIG, BIG),
+                               np.clip(bc + brr, -BIG, BIG)))
+    else:
+        tab.update(hf=np.zeros((0, _hfacet_width(D)), f32), hgt=no_gates,
+                   hgp=no_gates)
     rank = np.concatenate(ranks)
     inf = sorted(((int(g), int(rank[g]))
                   for g in np.nonzero(rank < NOT_INFINITE)[0]),
@@ -591,16 +875,20 @@ def pack_tables(sd: SceneData) -> dict:
 class DeviceScene:
     """The kernels' view of a compiled scene: contiguous tensors on one
     device (see pack_tables for the layouts) plus the static family sizes,
-    the quadric axis count A and gate box count B, the infinite leaves'
-    (gid, rank) and the host SceneData they came from (lights,
-    background)."""
+    the quadric axis count A, the gate box counts B of the quadric, facet
+    and hfacet blocks, the infinite leaves' (gid, rank) and the host
+    SceneData they came from (lights, background)."""
 
     dim: int
     n_sph: int
     n_pln: int
     n_quad: int
+    n_fct: int
+    n_hf: int
     a_quad: int
     b_gate: int
+    b_fct: int
+    b_hf: int
     inf_gids: tuple
     has_transparent: bool
     sph: torch.Tensor
@@ -614,6 +902,12 @@ class DeviceScene:
     qgi: torch.Tensor
     qgt: torch.Tensor
     qgp: torch.Tensor
+    fct: torch.Tensor
+    fgt: torch.Tensor
+    fgp: torch.Tensor
+    hf: torch.Tensor
+    hgt: torch.Tensor
+    hgp: torch.Tensor
     inf: torch.Tensor
     mat: torch.Tensor
     rank: torch.Tensor
@@ -624,7 +918,7 @@ class DeviceScene:
 
     @property
     def n_total(self):
-        return self.n_sph + self.n_pln + self.n_quad
+        return self.n_sph + self.n_pln + self.n_quad + self.n_fct + self.n_hf
 
     @property
     def device(self):
@@ -636,9 +930,11 @@ def to_device(sd: SceneData, device) -> DeviceScene:
     tab = pack_tables(sd)
     return DeviceScene(
         dim=sd.dim, n_sph=tab["sph"].shape[0], n_pln=tab["pln"].shape[0],
-        n_quad=tab["qbase"].shape[0], a_quad=tab["qaxes"].shape[1],
+        n_quad=tab["qbase"].shape[0], n_fct=tab["fct"].shape[0],
+        n_hf=tab["hf"].shape[0], a_quad=tab["qaxes"].shape[1],
         b_gate=(0 if sd.quadrics is None
                 else sd.quadrics.gate_tlo.shape[1]),
+        b_fct=tab["fgt"].shape[1], b_hf=tab["hgt"].shape[1],
         inf_gids=tuple(map(tuple, tab["inf"].tolist())),
         has_transparent=sd.has_transparent, host=sd,
         **{k: torch.as_tensor(a, device=device).contiguous()

@@ -1,10 +1,11 @@
 """Host-side scene object model: the builder API users construct scenes with.
 
 Counterpart of ``ndt_tpu/scene/model.py`` (object.h, scene.h).  All arrays
-are numpy float64, as in the C.  The type registry holds the families this
-port renders: ``sphere``, ``hplane``, ``hdisk``, ``cylinder`` and
-``orthotope``; the other types (hcylinder, facet, hfacet, hcube, cluster)
-and ``Scene.cluster`` come with later ROADMAP items.
+are numpy float64, as in the C.  The type registry holds every builtin type
+of the reference with its parameter counts: the random scene draws its
+parameters from these counts, so a wrong count shifts its whole drand48
+stream.  Clusters are registered but not compiled yet; ``Scene.cluster``
+comes with them (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -22,14 +23,16 @@ from ndt_tpu_torch.constants import EPSILON
 @dataclasses.dataclass(frozen=True)
 class ObjectTypeInfo:
     """Parameter schema for an object type (objects/object.h:12-20):
-    how many positions, directions, sizes and flags it needs (a count, or
-    a function of the object for types whose counts depend on a flag)."""
+    how many positions, directions, sizes, flags and sub-objects it needs
+    (a count, or a function of the object for types whose counts depend on
+    the dimension or a flag)."""
 
     name: str
     n_pos: Union[int, Callable]
     n_dir: Union[int, Callable]
     n_size: Union[int, Callable]
     n_flag: Union[int, Callable]
+    n_obj: Union[int, Callable] = 0
 
 
 _REGISTRY: Dict[str, ObjectTypeInfo] = {info.name: info for info in (
@@ -37,9 +40,21 @@ _REGISTRY: Dict[str, ObjectTypeInfo] = {info.name: info for info in (
     ObjectTypeInfo("hplane", 1, 1, 0, 0),      # hplane.c:16-28
     ObjectTypeInfo("hdisk", 1, 1, 1, 0),       # hdisk.c:41-53
     ObjectTypeInfo("cylinder", 2, 0, 1, 1),    # cylinder.c:58-71
+    ObjectTypeInfo("hcylinder",                # hcylinder.c:77-89
+                   lambda o: o.dim - 1, 0, 1, 0),
     ObjectTypeInfo("orthotope", 1,             # orthotope.c:77-92
                    lambda o: o.flag[0] if o.flag else 1, 0, 1),
+    ObjectTypeInfo("facet", 3, 3, 0, 1),       # facet.c:90-102
+    ObjectTypeInfo("hfacet", 3, 3, 0, 1),      # hfacet.c:99-110
+    ObjectTypeInfo("hcube", 1,                 # hcube.c:192-204
+                   lambda o: o.dim, lambda o: o.dim, 0),
+    ObjectTypeInfo("cluster", 0, 0, 0, 1,      # cluster.c params
+                   lambda o: len(o.children)),
 )}
+
+
+def type_info(name: str) -> ObjectTypeInfo:
+    return _REGISTRY[name]
 
 
 def object_types() -> List[str]:
@@ -65,6 +80,7 @@ class Object:
         self.dir: List[np.ndarray] = []
         self.size: List[float] = []
         self.flag: List[int] = []
+        self.children: List["Object"] = []
         # bounds: radius < 0 means infinite (object.c:588-598); None = unset
         self.bounds_center: Optional[np.ndarray] = None
         self.bounds_radius: Optional[float] = None
@@ -86,6 +102,10 @@ class Object:
         self.flag.append(int(f))
         return self
 
+    def add_obj(self, obj: "Object"):
+        self.children.append(obj)
+        return self
+
     def set_color(self, r, g, b):
         self.color = np.array([r, g, b], dtype=np.float64)
         return self
@@ -100,7 +120,8 @@ class Object:
         checks = [("positions", len(self.pos), info.n_pos),
                   ("directions", len(self.dir), info.n_dir),
                   ("sizes", len(self.size), info.n_size),
-                  ("flags", len(self.flag), info.n_flag)]
+                  ("flags", len(self.flag), info.n_flag),
+                  ("sub-objects", len(self.children), info.n_obj)]
         for what, have, need in checks:
             need = need(self) if callable(need) else need
             if have < need:
@@ -112,6 +133,8 @@ class Object:
                 raise ValueError(
                     f"object {self.name!r}: parameter vector of shape "
                     f"{p.shape} in a {self.dim}-D object")
+        for c in self.children:
+            c.validate()
         return self
 
     def bounding_points(self):
@@ -129,6 +152,10 @@ class Object:
                 return [(self.pos[0], self.size[0]),
                         (self.pos[1], self.size[0])]
             return []
+        if t == "hcylinder":
+            if self.flag and self.flag[0] == 0:                 # hcylinder.c:91-100
+                return [(p, self.size[0]) for p in self.pos]
+            return []
         if t == "orthotope":                                    # orthotope.c:94-120
             pts = []
             for mask in range(1 << self.flag[0]):
@@ -138,6 +165,20 @@ class Object:
                         corner = corner + self.dir[k]
                 pts.append((corner, 0.0))
             return pts
+        if t in ("facet", "hfacet"):
+            return [(p, 0.0) for p in self.pos]                 # facet.c:104-110
+        if t == "hcube":                                        # hcube.c:206-234
+            pts = []
+            for mask in range(1 << self.dim):
+                corner = self.pos[0].copy()
+                for k in range(self.dim):
+                    value = (mask >> k) & 1
+                    corner = corner + self.dir[k] * ((0.5 - value)
+                                                     * self.size[k])
+                pts.append((corner, 0.0))
+            return pts
+        if t == "cluster":                                      # cluster.c bounding
+            return [p for c in self.children for p in c.bounding_points()]
         raise ValueError(f"no bounding rule for type {t!r}")
 
     def get_bounds(self):

@@ -5,8 +5,9 @@
     scene_cleanup() -> None                           (optional)
 
 where ``scn`` is an ``ndt_tpu_torch.scene.Scene``.  Ported so far:
-``balls``, ``anim6d`` and ``lights3d``; the other scenes of the JAX
-package follow with the families they need (ROADMAP).
+``balls``, ``anim6d``, ``lights3d``, ``random`` and the built-in
+``test`` scene (also ``builtin``); the other scenes of the JAX package
+follow with the families they need (ROADMAP).
 """
 
 from __future__ import annotations
@@ -15,9 +16,12 @@ import importlib
 import os
 
 _SCENES = {
+    "test": "ndt_tpu_torch.scenes.builtin",
+    "builtin": "ndt_tpu_torch.scenes.builtin",
     "anim6d": "ndt_tpu_torch.scenes.anim6d",
     "balls": "ndt_tpu_torch.scenes.balls",
     "lights3d": "ndt_tpu_torch.scenes.lights3d",
+    "random": "ndt_tpu_torch.scenes.random_scene",
 }
 
 

@@ -3,10 +3,16 @@ the balls scene built by both packages, seeded rays, and array plumbing.
 JAX runs on the CPU (conftest.py); data crosses between the packages as
 numpy arrays, float32 made explicit because conftest turns on x64."""
 
+import dataclasses
+
 import numpy as np
 import torch
 
 W, H = 64, 48
+# the f32 shading bars (ROADMAP): colour off by > COLOR_TOL on < COLOR_FRAC
+# of lanes, >= NXT_AGREE equal continue flags, carried state within
+# CARRY_TOL where both continue
+COLOR_TOL, COLOR_FRAC, NXT_AGREE, CARRY_TOL = 1e-3, 0.002, 0.999, 1e-5
 
 
 def jax_balls():
@@ -35,24 +41,24 @@ def port_balls():
     return scn
 
 
-def jax_scene(name, dim, frame=0, frames=1):
+def jax_scene(name, dim, frame=0, frames=1, config=None):
     """The JAX package's host Scene of a registered scene, aimed."""
     from ndt_tpu.scene import Scene
     from ndt_tpu.scenes import get_scene
 
     scn = Scene(name, dim)
-    get_scene(name).scene_setup(scn, dim, frame, frames)
+    get_scene(name).scene_setup(scn, dim, frame, frames, config)
     scn.cam.aim()
     return scn
 
 
-def port_scene(name, dim, frame=0, frames=1):
+def port_scene(name, dim, frame=0, frames=1, config=None):
     """The port's host Scene of a registered scene, aimed."""
     from ndt_tpu_torch.scene import Scene
     from ndt_tpu_torch.scenes import get_scene
 
     scn = Scene(name, dim)
-    get_scene(name).scene_setup(scn, dim, frame, frames)
+    get_scene(name).scene_setup(scn, dim, frame, frames, config)
     scn.cam.aim()
     return scn
 
@@ -116,7 +122,7 @@ def port_primary_rays(device, W=W, H=H):
     return sd, o.contiguous(), v.contiguous(), live
 
 
-def seeded_scene(dim, port=False, lit=False, flat=0):
+def seeded_scene(dim, port=False, lit=False, flat=0, facets=False):
     """A scene with random spheres, hdisks, finite cylinders and a floor,
     one directional light, built with the JAX package's model, or with the
     port's (``port``: no JAX, as on the card's machine).  Both builds
@@ -124,7 +130,9 @@ def seeded_scene(dim, port=False, lit=False, flat=0):
 
     ``lit`` adds a point and a spot light, a reflective floor and a glass
     sphere (refract index 1.5); ``flat`` > 0 adds an orthotope slab of that
-    many axes, which makes the quadric block gated with ``flat`` axes."""
+    many axes, which makes the quadric block gated with ``flat`` axes;
+    ``facets`` adds two facets, an hfacet with vertex normals and an hcube,
+    whose faces make the quadric block gated with D - 1 axes."""
     if port:
         from ndt_tpu_torch.scene.model import LightType, Scene
     else:
@@ -182,6 +190,24 @@ def seeded_scene(dim, port=False, lit=False, flat=0):
         spot.dir = -spot.pos
         spot.angle = 25.0
         spot.set_color(80, 80, 40)
+    if facets:
+        for i in range(3):
+            f = scn.add_object("hfacet" if i == 1 else "facet", f"f{i}")
+            base = rng.uniform(-3, 3, dim)
+            for _ in range(3):
+                f.add_pos(base + rng.uniform(-2.5, 2.5, dim))
+            nrm = rng.normal(size=dim)
+            for _ in range(3):
+                f.add_dir(nrm)
+            f.add_flag(i % 2)
+            f.set_color(*rng.random(3)).set_reflect(0.2, 0.2, 0.2)
+        cube = scn.add_object("hcube", "cube")
+        cube.add_pos(rng.uniform(-2, 2, dim))
+        for axis in np.linalg.qr(rng.normal(size=(dim, dim)))[0]:
+            cube.add_dir(axis)
+        for _ in range(dim):
+            cube.add_size(rng.uniform(1.0, 2.5))
+        cube.set_color(0.8, 0.5, 0.2).set_reflect(0.1, 0.1, 0.1)
     return scn
 
 
@@ -195,6 +221,44 @@ def seeded_rays(dim, R=4096):
     d = rng.uniform(-4, 4, (R, dim)) - o
     v = d / np.linalg.norm(d, axis=1, keepdims=True)
     return o.astype(np.float32), v.astype(np.float32), rng.random(R) < 0.9
+
+
+def aimed_rays(sd, origin, seed, R=4096):
+    """(o, v, live) float32 numpy: R rays from around ``origin`` toward
+    seeded points near the finite leaves' bounding spheres of a compiled
+    scene (the JAX package's SceneData or the port's), 90% live."""
+    rng = np.random.default_rng(seed)
+    c = np.concatenate([np.asarray(b.b_center, np.float64)
+                        for b in sd.blocks])
+    r = np.concatenate([np.asarray(b.b_radius, np.float64)
+                        for b in sd.blocks])
+    c, r = c[r >= 0], r[r >= 0]
+    dim = c.shape[1]
+    o = np.asarray(origin, np.float64) + rng.normal(scale=0.5, size=(R, dim))
+    k = rng.integers(0, len(c), R)
+    d = c[k] + rng.normal(size=(R, dim)) * (0.5 * r[k])[:, None] - o
+    v = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), v.astype(np.float32), rng.random(R) < 0.9
+
+
+def port_band(scn, width, height, rows):
+    """Rows ``rows`` of the port's CPU render of an aimed host Scene at
+    width x height, as the golden PNGs hold them (bytes / 255), and the
+    rays it traced."""
+    from ndt_tpu_torch.image import linear_to_bytes
+    from ndt_tpu_torch.render.engine import (RenderOptions, _pixel_grid,
+                                             render_tile)
+    from ndt_tpu_torch.scene import compile_scene, to_device
+
+    sd = to_device(compile_scene(scn), "cpu")
+    cam = scn.cam.data(device="cpu")
+    cam = dataclasses.replace(
+        cam, dir_x=cam.dir_x * float(np.float32(width / height)))
+    xx, yy = _pixel_grid(width, height, np.float32)
+    c, _, n = render_tile(sd, cam, torch.as_tensor(xx[rows].ravel()),
+                          torch.as_tensor(yy[rows].ravel()),
+                          RenderOptions(width=width, height=height))
+    return linear_to_bytes(c.numpy().reshape(-1, width, 3)) / 255.0, int(n)
 
 
 def t(a, dtype=None):
@@ -224,3 +288,184 @@ def assert_trace_bar(got, ref, live):
     assert both.any()
     np.testing.assert_allclose(t_g[both], t_r[both], rtol=2e-4, atol=2e-3)
     assert (m_g[both] == m_r[both]).all()
+
+
+# --------------------------------------------------------------------------
+# a scene compiled by the JAX package, its rays and its Pallas kernels'
+# results (interpret mode), against the port's twins
+
+
+def jax_primary(jscn, W=W, H=H):
+    """The JAX engine's primary rays of a scene at W x H in screen-blocked
+    order, padded to whole tiles with o = v = 1, and the live mask."""
+    import jax.numpy as jnp
+
+    from ndt_tpu.render.engine import (RenderOptions, _blocked_perm,
+                                       _pixel_grid, gen_rays)
+
+    cd = jscn.cam.data(np.float32)
+    cd = dataclasses.replace(cd, dir_x=cd.dir_x * np.float32(W / H))
+    xx, yy = _pixel_grid(W, H, np.dtype(np.float32))
+    perm, _ = _blocked_perm(W, H)
+    o, v = gen_rays(cd, jnp.asarray(xx.ravel()[perm]),
+                    jnp.asarray(yy.ravel()[perm]), None,
+                    RenderOptions(width=W, height=H), "center", False, False)
+    o, v = np.asarray(o, np.float32), np.asarray(v, np.float32)
+    R, D = o.shape
+    pad = (-R) % 4096
+    live = np.arange(R + pad) < R
+    return (np.concatenate([o, np.ones((pad, D), np.float32)]),
+            np.concatenate([v, np.ones((pad, D), np.float32)]), live)
+
+
+class Case:
+    """One scene compiled by the JAX package and carried over to the port,
+    with a ray batch and the JAX closest hits of it."""
+
+    def __init__(self, jsd, o, v, live):
+        from ndt_tpu_torch.scene import scene_from_numpy, to_device
+
+        self.jsd, self.o, self.v, self.live = jsd, o, v, live
+        self.scn = to_device(scene_from_numpy(jsd), "cpu")
+        self.hits = jax_trace(jsd, o, v, live)
+
+
+def jax_trace(jsd, o, v, live):
+    import jax.numpy as jnp
+
+    from ndt_tpu.render.pallas_trace import pallas_trace
+
+    aux = jnp.full((o.shape[0],), -1, jnp.int32)
+    out = pallas_trace(jsd.ptables[0], j32(o), j32(v), aux, jsd.pmeta[0],
+                       "closest", interpret=True, live=jnp.asarray(live))
+    return [np.asarray(x) for x in out]
+
+
+def jax_bounce(case):
+    """The first bounce of a case: mirror rays off its primary hits, from
+    the JAX shade kernel in carry mode."""
+    jout = jax_shade(case, "carry")
+    return Case(case.jsd, jout[0], jout[1], jout[5] > 0.5)
+
+
+def carry_inputs(R):
+    rng = np.random.default_rng(5)
+    return (rng.uniform(0.2, 1, (R, 3)).astype(np.float32),
+            rng.uniform(0.001, 1, R).astype(np.float32),
+            rng.uniform(0, 0.5, (R, 3)).astype(np.float32))
+
+
+def jax_shade(case, mode, specular=True):
+    import jax.numpy as jnp
+
+    from ndt_tpu.render.pallas_trace import pallas_shade
+    from ndt_tpu.render.trace import _shadow_culls, fused_light_info
+
+    tt, mat, nrm, props = case.hits
+    kinds, lvec = fused_light_info(case.jsd)
+    tabs, meta = case.jsd.ptables[0], case.jsd.pmeta[0]
+    culls = _shadow_culls(kinds, lvec, tabs, meta, j32(case.o), j32(case.v),
+                          j32(tt), jnp.asarray(case.live))
+    carry = None
+    if mode != "local":
+        w, frac, color = carry_inputs(case.o.shape[0])
+        carry = (j32(w), j32(frac), j32(color), jnp.asarray(case.live))
+    out = pallas_shade(tabs, j32(case.o), j32(case.v), j32(tt),
+                       jnp.asarray(mat), j32(nrm), j32(props), lvec, culls,
+                       meta, kinds, fused_spec=specular, interpret=True,
+                       carry=carry, escalate=mode == "escalate")
+    return [np.asarray(x) for x in (out if carry is not None else (out,))]
+
+
+def port_shade(case, mode, specular=True):
+    from ndt_tpu_torch.render.kernels import shade_carry, shade_local
+    from ndt_tpu_torch.render.trace import _shadow_culls, fused_light_info
+
+    tt, mat, nrm, props = (t(x) for x in case.hits)
+    kinds, lvec = fused_light_info(case.scn)
+    o, v, live = t(case.o), t(case.v), t(case.live)
+    culls = _shadow_culls(case.scn, kinds, lvec, o, v, tt, live)
+    args = (case.scn, o, v, tt, mat, nrm, props, lvec, culls, kinds,
+            specular)
+    if mode == "local":
+        return [shade_local(*args).numpy()]
+    w, frac, color = (t(x) for x in carry_inputs(case.o.shape[0]))
+    out = shade_carry(*args, w, frac, color, live,
+                      escalate=mode == "escalate")
+    return [x.numpy() for x in out]
+
+
+def assert_shade_bar(case, mode, specular=True, min_hit=0.2):
+    jout = jax_shade(case, mode, specular)
+    pout = port_shade(case, mode, specular)
+    live = case.live
+    hit = live & (case.hits[0] < 5e29)
+    assert hit.mean() > min_hit
+    if mode == "local":
+        cd = np.abs(pout[0] - jout[0]).max(1)[hit]
+        assert (cd > COLOR_TOL).mean() < COLOR_FRAC, cd.max()
+        return
+    cd = np.abs(pout[4] - jout[4]).max(1)[live]
+    assert (cd > COLOR_TOL).mean() < COLOR_FRAC, cd.max()
+    jn = jout[5]
+    assert (pout[5] == (jn > 0.5))[live].mean() >= NXT_AGREE
+    both = pout[5] & (jn > 0.5) & live
+    for a, b in zip(pout[:4], jout[:4]):
+        a, b = a.reshape(len(a), -1), b.reshape(len(b), -1)
+        np.testing.assert_allclose(a[both], b[both], atol=CARRY_TOL, rtol=0)
+    if mode == "escalate":
+        assert (pout[6] == (jn < -0.5))[live].mean() >= NXT_AGREE
+        return (jn < -0.5).sum()
+
+
+def assert_card_shade_variants(scn, o, v, live, kinds, facets=False):
+    """On the card: every shade variant (local, carry, escalate) against
+    its twin on the twin's closest hits of (o, v), at the shading bars,
+    and each launch counted once under its mode, its point / spot lights
+    and (``facets``) its facet families."""
+    from ndt_tpu_torch.render.kernels import (cull_lists, launch_counts,
+                                              shade_carry, shade_carry_ref,
+                                              shade_local, shade_local_ref,
+                                              trace_closest_ref)
+    from ndt_tpu_torch.render.trace import _shadow_culls, fused_light_info
+
+    R = o.shape[0]
+    aux = torch.full((R,), -1, dtype=torch.int32, device="cuda")
+    tt, mat, nrm, props = trace_closest_ref(
+        scn, o, v, aux, *cull_lists(scn, o, v, live=live))
+    got_kinds, lvec = fused_light_info(scn)
+    assert got_kinds == kinds
+    culls = _shadow_culls(scn, kinds, lvec, o, v, tt, live)
+    base = (scn, o, v, tt, mat, nrm, props, lvec, culls, kinds, True)
+    rng = np.random.default_rng(6)
+    carry = tuple(torch.as_tensor(x.astype(np.float32), device="cuda")
+                  for x in (rng.uniform(0.2, 1, (R, 3)),
+                            rng.uniform(0.001, 1, R),
+                            rng.uniform(0, 0.5, (R, 3)))) + (live,)
+    lv = live.cpu().numpy()
+    hit = lv & (tt.cpu().numpy() < 5e29)
+    before = dict(launch_counts)
+    got = shade_local(*base).cpu().numpy()
+    ref = shade_local_ref(*base).cpu().numpy()
+    cd = np.abs(got - ref).max(1)[hit]
+    assert (cd > COLOR_TOL).mean() < COLOR_FRAC
+    for escalate in (False, True):
+        got = [x.cpu().numpy() for x in shade_carry(*base, *carry,
+                                                    escalate=escalate)]
+        ref = [x.cpu().numpy() for x in shade_carry_ref(*base, *carry,
+                                                        escalate=escalate)]
+        cd = np.abs(got[4] - ref[4]).max(1)[lv]
+        assert (cd > COLOR_TOL).mean() < COLOR_FRAC
+        assert (got[5] == ref[5])[lv].mean() >= NXT_AGREE
+        both = got[5] & ref[5] & lv
+        for x, y in zip(got[:4], ref[:4]):
+            np.testing.assert_allclose(x[both], y[both], atol=CARRY_TOL,
+                                       rtol=0)
+        if escalate:
+            assert (got[6] == ref[6])[lv].mean() >= NXT_AGREE
+            assert ref[6][lv].any()                 # the glass taints
+    expect = {"shade_local": 1, "shade_carry": 1, "shade_escalate": 1,
+              "shade_point": 3 * ("p" in kinds), "shade_spot": 3 * ("s" in kinds),
+              "shade_facets": 3 * facets}
+    for k, n in expect.items():
+        assert launch_counts[k] == before[k] + n, k

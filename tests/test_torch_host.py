@@ -123,6 +123,38 @@ def test_kd_cells_equal_jax_python_build(monkeypatch):
                 np.testing.assert_array_equal(x, y)
 
 
+@pytest.mark.parametrize("case", ["seeded", "random20", "random150"])
+def test_native_kd_cells_equal_python_build(case):
+    """The C++ kd build (native/kdcells.cc) against the port's Python
+    recursion: the same leaf cells per item, in the same order, on seeded
+    overlapping boxes with an inverted (never-bounded) row, and on the kd
+    items of random "20" and "150" (~155,000 cells)."""
+    from ndt_tpu_torch import native
+    from ndt_tpu_torch.scene.compile import _flatten
+    from ndt_tpu_torch.utils.kdtree import build_c_exact
+
+    from _torch_common import port_scene
+
+    assert native.get_lib() is not None
+    if case == "seeded":
+        rng = np.random.default_rng(9)
+        lo = rng.uniform(-10, 10, (60, 5))
+        hi = lo + rng.uniform(0.1, 4, (60, 5))
+        lo[7], hi[7] = np.inf, -np.inf
+    else:
+        scn = port_scene("random", 5, config=case[len("random"):])
+        _, _, items = _flatten(scn.objects, 5)
+        lo = np.stack([a for a, _ in items])
+        hi = np.stack([b for _, b in items])
+    got = build_c_exact(lo, hi)
+    ref = build_c_exact(lo, hi, native=False)
+    assert len(got) == len(ref) and sum(map(len, ref)) > len(ref)
+    for a, b in zip(got, ref):
+        assert len(a) == len(b)
+        if a:           # the inverted row falls out of both children
+            np.testing.assert_array_equal(np.stack(a), np.stack(b))
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_refract_matches_jax(dtype):
     """mathnd.refract (numpy and torch) against ndt_tpu.mathnd.refract on

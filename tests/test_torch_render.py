@@ -86,19 +86,21 @@ def test_balls_band_matches_c_golden():
 
 
 def test_port_renders_without_jax():
-    """A fresh interpreter imports the port, sets up balls and anim6d,
-    renders both at 16x12 on the CPU, and has loaded no module of the JAX
-    package (``ndt_tpu`` or ``ndt_tpu.*``), nor jax or flax."""
+    """A fresh interpreter imports the port, sets up balls, anim6d, the
+    built-in test scene and random "20", renders each at 16x12 on the CPU,
+    and has loaded no module of the JAX package (``ndt_tpu`` or
+    ``ndt_tpu.*``), nor jax or flax."""
     code = (
         "import sys, numpy as np\n"
         "from ndt_tpu_torch.scene import Scene\n"
         "from ndt_tpu_torch.scenes import get_scene\n"
         "from ndt_tpu_torch.render.engine import RenderOptions, "
         "render_frame\n"
-        "for name, dim, frame, frames in (('balls', 4, 0, 1500), "
-        "('anim6d', 6, 1, 4)):\n"
+        "for name, dim, frame, frames, cfg in (('balls', 4, 0, 1500, None), "
+        "('anim6d', 6, 1, 4, None), ('test', 4, 0, 1, None), "
+        "('random', 5, 0, 1, '20')):\n"
         "    scn = Scene(name, dim)\n"
-        "    get_scene(name).scene_setup(scn, dim, frame, frames)\n"
+        "    get_scene(name).scene_setup(scn, dim, frame, frames, cfg)\n"
         "    img, _, rays = render_frame(scn, RenderOptions(width=16, "
         "height=12), device='cpu')\n"
         "    assert img.shape == (12, 16, 3) and np.isfinite(img).all()\n"

@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_common import W, H, jax_balls, port_balls, reset_port_scenes
+from _torch_common import (W, H, jax_balls, jax_scene, port_balls,
+                           reset_port_scenes)
 
 
 @pytest.fixture(autouse=True)
@@ -111,12 +112,19 @@ def test_scene_from_numpy_round_trips():
 
 
 def test_scene_from_numpy_refuses_unported_families():
+    """Every intersection family is ported (facets and hfacets carry
+    over); area lights are not and raise."""
     from types import SimpleNamespace
 
+    from ndt_tpu.scene.compile import compile_scene as jax_compile
     from ndt_tpu_torch.scene import scene_from_numpy
+    from ndt_tpu_torch.scene.model import LightType
 
-    with pytest.raises(NotImplementedError):
-        scene_from_numpy(SimpleNamespace(facets=object(), hfacets=None))
+    jsd = jax_compile(jax_scene("test", 4), np.float32)
+    assert scene_from_numpy(jsd).facets is not None
+    area = SimpleNamespace(kind=int(LightType.DISK))
+    with pytest.raises(NotImplementedError, match="area lights"):
+        scene_from_numpy(SimpleNamespace(lights=(area,)))
 
 
 @pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-12),

@@ -15,13 +15,17 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_common import (assert_trace_bar, j32, jax_scene, port_scene,
+from _torch_common import (Case, assert_card_shade_variants,
+                           assert_shade_bar, assert_trace_bar, jax_bounce,
+                           jax_primary, jax_scene, jax_trace, port_band,
+                           port_scene,
                            reset_port_scenes, seeded_rays, seeded_scene, t)
 
 W, H = 64, 48
-COLOR_TOL, COLOR_FRAC, NXT_AGREE, CARRY_TOL = 1e-3, 0.002, 0.999, 1e-5
-# (D, A) pairs of the kernel library's instances (csrc/*.cu NDT_CASE)
-INSTANCES = [(d, 1) for d in range(3, 9)] + [(d, 2) for d in range(4, 7)]
+# (D, A) pairs of the kernel library's instances (csrc/families.cuh
+# dispatch_a): every A < D for D <= 6, A = 1 for D = 7, 8
+INSTANCES = ([(d, 1) for d in range(3, 9)]
+             + [(d, a) for d in range(3, 7) for a in range(2, d)])
 
 
 @pytest.fixture(autouse=True)
@@ -49,70 +53,17 @@ def pallas_interpret():
     trace_mod.set_trace_impl("auto")
 
 
-def _primary(jscn, W=W, H=H):
-    """The JAX engine's primary rays of a scene at W x H in screen-blocked
-    order, padded to whole tiles with o = v = 1, and the live mask."""
-    import jax.numpy as jnp
-
-    from ndt_tpu.render.engine import (RenderOptions, _blocked_perm,
-                                       _pixel_grid, gen_rays)
-
-    cd = jscn.cam.data(np.float32)
-    cd = dataclasses.replace(cd, dir_x=cd.dir_x * np.float32(W / H))
-    xx, yy = _pixel_grid(W, H, np.dtype(np.float32))
-    perm, _ = _blocked_perm(W, H)
-    o, v = gen_rays(cd, jnp.asarray(xx.ravel()[perm]),
-                    jnp.asarray(yy.ravel()[perm]), None,
-                    RenderOptions(width=W, height=H), "center", False, False)
-    o, v = np.asarray(o, np.float32), np.asarray(v, np.float32)
-    R, D = o.shape
-    pad = (-R) % 4096
-    live = np.arange(R + pad) < R
-    return (np.concatenate([o, np.ones((pad, D), np.float32)]),
-            np.concatenate([v, np.ones((pad, D), np.float32)]), live)
-
-
-class Case:
-    """One scene compiled by the JAX package and carried over to the port,
-    with a ray batch and the JAX closest hits of it."""
-
-    def __init__(self, jsd, o, v, live):
-        from ndt_tpu_torch.scene import scene_from_numpy, to_device
-
-        self.jsd, self.o, self.v, self.live = jsd, o, v, live
-        self.scn = to_device(scene_from_numpy(jsd), "cpu")
-        self.hits = _jax_trace(jsd, o, v, live)
-
-
-def _jax_trace(jsd, o, v, live):
-    import jax.numpy as jnp
-
-    from ndt_tpu.render.pallas_trace import pallas_trace
-
-    aux = jnp.full((o.shape[0],), -1, jnp.int32)
-    out = pallas_trace(jsd.ptables[0], j32(o), j32(v), aux, jsd.pmeta[0],
-                       "closest", interpret=True, live=jnp.asarray(live))
-    return [np.asarray(x) for x in out]
-
-
-def _bounce(case):
-    """The first bounce of a case: mirror rays off its primary hits, from
-    the JAX shade kernel in carry mode."""
-    jout = _jax_shade(case, "carry")
-    return Case(case.jsd, jout[0], jout[1], jout[5] > 0.5)
-
-
 @pytest.fixture(scope="module")
 def anim6d(pallas_interpret):
     from ndt_tpu.scene.compile import compile_scene
 
     jscn = jax_scene("anim6d", 6, 1, 4)
-    return Case(compile_scene(jscn, np.float32), *_primary(jscn))
+    return Case(compile_scene(jscn, np.float32), *jax_primary(jscn))
 
 
 @pytest.fixture(scope="module")
 def anim6d_bounce(anim6d):
-    return _bounce(anim6d)
+    return jax_bounce(anim6d)
 
 
 @pytest.fixture(scope="module")
@@ -120,77 +71,7 @@ def lights3d(pallas_interpret):
     from ndt_tpu.scene.compile import compile_scene
 
     jscn = jax_scene("lights3d", 3)
-    return Case(compile_scene(jscn, np.float32), *_primary(jscn))
-
-
-def _carry_inputs(R):
-    rng = np.random.default_rng(5)
-    return (rng.uniform(0.2, 1, (R, 3)).astype(np.float32),
-            rng.uniform(0.001, 1, R).astype(np.float32),
-            rng.uniform(0, 0.5, (R, 3)).astype(np.float32))
-
-
-def _jax_shade(case, mode, specular=True):
-    import jax.numpy as jnp
-
-    from ndt_tpu.render.pallas_trace import pallas_shade
-    from ndt_tpu.render.trace import _shadow_culls, fused_light_info
-
-    tt, mat, nrm, props = case.hits
-    kinds, lvec = fused_light_info(case.jsd)
-    tabs, meta = case.jsd.ptables[0], case.jsd.pmeta[0]
-    culls = _shadow_culls(kinds, lvec, tabs, meta, j32(case.o), j32(case.v),
-                          j32(tt), jnp.asarray(case.live))
-    carry = None
-    if mode != "local":
-        w, frac, color = _carry_inputs(case.o.shape[0])
-        carry = (j32(w), j32(frac), j32(color), jnp.asarray(case.live))
-    out = pallas_shade(tabs, j32(case.o), j32(case.v), j32(tt),
-                       jnp.asarray(mat), j32(nrm), j32(props), lvec, culls,
-                       meta, kinds, fused_spec=specular, interpret=True,
-                       carry=carry, escalate=mode == "escalate")
-    return [np.asarray(x) for x in (out if carry is not None else (out,))]
-
-
-def _port_shade(case, mode, specular=True):
-    from ndt_tpu_torch.render.kernels import shade_carry, shade_local
-    from ndt_tpu_torch.render.trace import _shadow_culls, fused_light_info
-
-    tt, mat, nrm, props = (t(x) for x in case.hits)
-    kinds, lvec = fused_light_info(case.scn)
-    o, v, live = t(case.o), t(case.v), t(case.live)
-    culls = _shadow_culls(case.scn, kinds, lvec, o, v, tt, live)
-    args = (case.scn, o, v, tt, mat, nrm, props, lvec, culls, kinds,
-            specular)
-    if mode == "local":
-        return [shade_local(*args).numpy()]
-    w, frac, color = (t(x) for x in _carry_inputs(case.o.shape[0]))
-    out = shade_carry(*args, w, frac, color, live,
-                      escalate=mode == "escalate")
-    return [x.numpy() for x in out]
-
-
-def _assert_shade_bar(case, mode, specular=True, min_hit=0.2):
-    jout = _jax_shade(case, mode, specular)
-    pout = _port_shade(case, mode, specular)
-    live = case.live
-    hit = live & (case.hits[0] < 5e29)
-    assert hit.mean() > min_hit
-    if mode == "local":
-        cd = np.abs(pout[0] - jout[0]).max(1)[hit]
-        assert (cd > COLOR_TOL).mean() < COLOR_FRAC, cd.max()
-        return
-    cd = np.abs(pout[4] - jout[4]).max(1)[live]
-    assert (cd > COLOR_TOL).mean() < COLOR_FRAC, cd.max()
-    jn = jout[5]
-    assert (pout[5] == (jn > 0.5))[live].mean() >= NXT_AGREE
-    both = pout[5] & (jn > 0.5) & live
-    for a, b in zip(pout[:4], jout[:4]):
-        a, b = a.reshape(len(a), -1), b.reshape(len(b), -1)
-        np.testing.assert_allclose(a[both], b[both], atol=CARRY_TOL, rtol=0)
-    if mode == "escalate":
-        assert (pout[6] == (jn < -0.5))[live].mean() >= NXT_AGREE
-        return (jn < -0.5).sum()
+    return Case(compile_scene(jscn, np.float32), *jax_primary(jscn))
 
 
 # --------------------------------------------------------------------------
@@ -314,11 +195,11 @@ def test_point_light_shade_twins_match_pallas(anim6d, anim6d_bounce, mode):
     rank-gated closest shadow walk, same-object test) against the Pallas
     shade kernel: carry (primary and first-bounce rays), escalate (taint
     on the glass) and the local colour."""
-    n_taint = _assert_shade_bar(anim6d, mode)
+    n_taint = assert_shade_bar(anim6d, mode)
     if mode == "escalate":
         assert n_taint > 50
     if mode == "carry":
-        _assert_shade_bar(anim6d_bounce, mode, min_hit=0.05)
+        assert_shade_bar(anim6d_bounce, mode, min_hit=0.05)
 
 
 @pytest.mark.parametrize("mode,specular", [("carry", True),
@@ -326,7 +207,7 @@ def test_point_light_shade_twins_match_pallas(anim6d, anim6d_bounce, mode):
 def test_spot_light_shade_twins_match_pallas(lights3d, mode, specular):
     """lights3d's spot, point and directional lights on its primary rays,
     with and without the specular term."""
-    _assert_shade_bar(lights3d, mode, specular)
+    assert_shade_bar(lights3d, mode, specular)
 
 
 # --------------------------------------------------------------------------
@@ -395,8 +276,8 @@ def test_stack_size_2_drops_the_same_children_as_jax(monkeypatch,
 
     jscn = jax_scene("anim6d", 6, 1, 4)
     jsd = compile_scene(jscn, np.float32)
-    o, v, live = _primary(jscn)
-    glass = np.nonzero(live & (_jax_trace(jsd, o, v, live)[1] == 2))[0]
+    o, v, live = jax_primary(jscn)
+    glass = np.nonzero(live & (jax_trace(jsd, o, v, live)[1] == 2))[0]
     assert len(glass) > 100
     o, v = o[glass[::2]], v[glass[::2]]
     jopts = jengine.RenderOptions(width=W, height=H, stack_size=2)
@@ -460,22 +341,9 @@ def test_anim6d_band_matches_c_golden():
     measured RMSE 8.193e-04 on the CPU, so the f32 bar is the same 1e-3;
     the port's band measures 9.30e-04."""
     from conftest import load_golden
-    from ndt_tpu_torch.image import linear_to_bytes
-    from ndt_tpu_torch.render.engine import (RenderOptions, _pixel_grid,
-                                             render_tile)
-    from ndt_tpu_torch.scene import compile_scene, to_device
 
     width, height, rows = 160, 120, slice(30, 90)
-    scn = port_scene("anim6d", 6, 1, 4)
-    sd = to_device(compile_scene(scn), "cpu")
-    cam = scn.cam.data(device="cpu")
-    cam = dataclasses.replace(
-        cam, dir_x=cam.dir_x * float(np.float32(width / height)))
-    xx, yy = _pixel_grid(width, height, np.float32)
-    c, _, n = render_tile(sd, cam, torch.as_tensor(xx[rows].ravel()),
-                          torch.as_tensor(yy[rows].ravel()),
-                          RenderOptions(width=width, height=height))
-    mine = linear_to_bytes(c.numpy().reshape(-1, width, 3)) / 255.0
+    mine, n = port_band(port_scene("anim6d", 6, 1, 4), width, height, rows)
     ref = load_golden("anim6d_6d_160x120_f1.png")[rows]
     rmse = np.sqrt(((mine - ref) ** 2).mean())
     assert rmse < 1e-3, f"RMSE {rmse}"
@@ -567,52 +435,7 @@ def test_shade_kernel_variants_match_twin_every_instance(dim, a):
     """Every shade variant (carry, escalate, local) with directional,
     point and spot lights at every (D, A) instance against its twin."""
     _card()
-    from ndt_tpu_torch.render.kernels import (cull_lists, launch_counts,
-                                              shade_carry, shade_carry_ref,
-                                              shade_local, shade_local_ref,
-                                              trace_closest_ref)
-    from ndt_tpu_torch.render.trace import _shadow_culls, fused_light_info
-
-    scn, o, v, live = _card_case(dim, a)
-    R = o.shape[0]
-    aux = torch.full((R,), -1, dtype=torch.int32, device="cuda")
-    tt, mat, nrm, props = trace_closest_ref(
-        scn, o, v, aux, *cull_lists(scn, o, v, live=live))
-    kinds, lvec = fused_light_info(scn)
-    assert kinds == ("d", "p", "s")
-    culls = _shadow_culls(scn, kinds, lvec, o, v, tt, live)
-    base = (scn, o, v, tt, mat, nrm, props, lvec, culls, kinds, True)
-    rng = np.random.default_rng(6)
-    carry = tuple(torch.as_tensor(x.astype(np.float32), device="cuda")
-                  for x in (rng.uniform(0.2, 1, (R, 3)),
-                            rng.uniform(0.001, 1, R),
-                            rng.uniform(0, 0.5, (R, 3)))) + (live,)
-    lv = live.cpu().numpy()
-    hit = lv & (tt.cpu().numpy() < 5e29)
-    before = dict(launch_counts)
-    got = shade_local(*base).cpu().numpy()
-    ref = shade_local_ref(*base).cpu().numpy()
-    cd = np.abs(got - ref).max(1)[hit]
-    assert (cd > COLOR_TOL).mean() < COLOR_FRAC
-    for escalate in (False, True):
-        got = [x.cpu().numpy() for x in shade_carry(*base, *carry,
-                                                    escalate=escalate)]
-        ref = [x.cpu().numpy() for x in shade_carry_ref(*base, *carry,
-                                                        escalate=escalate)]
-        cd = np.abs(got[4] - ref[4]).max(1)[lv]
-        assert (cd > COLOR_TOL).mean() < COLOR_FRAC
-        assert (got[5] == ref[5])[lv].mean() >= NXT_AGREE
-        both = got[5] & ref[5] & lv
-        for x, y in zip(got[:4], ref[:4]):
-            np.testing.assert_allclose(x[both], y[both], atol=CARRY_TOL,
-                                       rtol=0)
-        if escalate:
-            assert (got[6] == ref[6])[lv].mean() >= NXT_AGREE
-            assert ref[6][lv].any()                 # the glass taints
-    for k, n in (("shade_local", 1), ("shade_carry", 1),
-                 ("shade_escalate", 1), ("shade_point", 3),
-                 ("shade_spot", 3)):
-        assert launch_counts[k] == before[k] + n, k
+    assert_card_shade_variants(*_card_case(dim, a), ("d", "p", "s"))
 
 
 @pytest.mark.gpu

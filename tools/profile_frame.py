@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Where the time of one ndt_tpu_torch frame goes, on one CUDA card.
 
-    python3 tools/profile_frame.py [--scene balls|anim6d]
+    python3 tools/profile_frame.py [--scene balls|anim6d|test|random150]
                                    [--width W --height H] [--trace PATH]
 
-Renders the 4-D balls scene, frame 0 (1920x1080 by default), or the 6-D
-anim6d scene, frame 1 (640x480 by default: the refraction-stack path),
-through the port's render_frame on the card: two warm-up frames (one for
-anim6d), three timed frames (host clock around torch.cuda.synchronize()),
-then one frame under torch.profiler (CPU + CUDA activities).  The profiled
-frame's functions are wrapped in record_function spans by this script
-alone (the port has no profiling switch).  It prints:
+Renders one of the port's frames through its render_frame on the card:
+the 4-D balls scene, frame 0 (1920x1080 by default); the 6-D anim6d scene,
+frame 1 (640x480: the refraction-stack path); the built-in test scene 4-D,
+frame 0 (640x480: facet, open hcylinder, glass, three point lights); or
+random "150" 5-D (640x480, the random150_5d bench config: 3891 leaves, the
+early exit).  Two warm-up frames (one for anim6d and test), three timed
+frames (host clock around torch.cuda.synchronize()), then one frame under
+torch.profiler (CPU + CUDA activities).  The profiled frame's functions
+are wrapped in record_function spans by this script alone (the port has no
+profiling switch).  It prints:
 
   * the card's name and power limit (nvidia-smi);
   * the unprofiled s/frame;
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import functools
 import json
 import os
@@ -59,7 +63,11 @@ SPANS = {
     ("trace", "shade_carry"): "shade_carry",
     ("trace", "shade_local"): "shade_local",
 }
-SCENES = {"balls": (4, 0, 1500, 1920, 1080), "anim6d": (6, 1, 4, 640, 480)}
+# name -> (scene, D, frame, frames, config, default width, height)
+SCENES = {"balls": ("balls", 4, 0, 1500, None, 1920, 1080),
+          "anim6d": ("anim6d", 6, 1, 4, None, 640, 480),
+          "test": ("test", 4, 0, 1, None, 640, 480),
+          "random150": ("random", 5, 0, 1, "150", 640, 480)}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -67,17 +75,20 @@ def make_scene(name):
     from ndt_tpu_torch.scene import Scene
     from ndt_tpu_torch.scenes import get_scene
 
-    dim, frame, frames = SCENES[name][:3]
-    mod = get_scene(name)
-    scn = Scene(name, dim)
-    mod.scene_setup(scn, dim, frame, frames)
+    key, dim, frame, frames, config = SCENES[name][:5]
+    mod = get_scene(key)
+    scn = Scene(key, dim)
+    mod.scene_setup(scn, dim, frame, frames, config)
     if hasattr(mod, "scene_cleanup"):
         mod.scene_cleanup()
     scn.cam.aim()
     return scn
 
 
+@contextlib.contextmanager
 def wrap_spans(modules):
+    """Wrap the SPANS functions in record_function spans while the block
+    runs."""
     import torch
 
     def wrapped(name, fn):
@@ -87,8 +98,14 @@ def wrap_spans(modules):
                 return fn(*a, **k)
         return call
 
+    orig = {key: getattr(modules[key[0]], key[1]) for key in SPANS}
     for (mod, attr), name in SPANS.items():
-        setattr(modules[mod], attr, wrapped(name, getattr(modules[mod], attr)))
+        setattr(modules[mod], attr, wrapped(name, orig[(mod, attr)]))
+    try:
+        yield
+    finally:
+        for (mod, attr), fn in orig.items():
+            setattr(modules[mod], attr, fn)
 
 
 def union_ms(intervals, lo, hi):
@@ -165,6 +182,28 @@ def analyse(trace):
                             for k, (n, ms) in host.items()})
 
 
+def profile_frame(scn, opts, trace_path=None):
+    """One frame of render_frame on the card under torch.profiler, its
+    functions wrapped in spans: analyse()'s numbers."""
+    import torch
+
+    from ndt_tpu_torch.render import engine, trace
+    from ndt_tpu_torch.render.engine import render_frame
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with wrap_spans({"engine": engine, "trace": trace}):
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function("frame"):
+                render_frame(scn, opts, device="cuda")
+                torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trace_path or os.path.join(tmp, "frame.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return analyse(json.load(f))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scene", choices=sorted(SCENES), default="balls")
@@ -180,7 +219,6 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from ndt_tpu_torch.kernels import build
-    from ndt_tpu_torch.render import engine, trace
     from ndt_tpu_torch.render.engine import RenderOptions, render_frame
 
     card = subprocess.run(
@@ -189,11 +227,11 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0].strip()
     print(card)
     build.load_library()
-    W = args.width or SCENES[args.scene][3]
-    H = args.height or SCENES[args.scene][4]
+    W = args.width or SCENES[args.scene][5]
+    H = args.height or SCENES[args.scene][6]
     opts = RenderOptions(width=W, height=H)
     scn = make_scene(args.scene)
-    for _ in range(1 if args.scene == "anim6d" else 2):
+    for _ in range(1 if args.scene in ("anim6d", "test") else 2):
         render_frame(scn, opts, device="cuda")
     torch.cuda.synchronize()
     times = []
@@ -205,18 +243,7 @@ def main():
     print(f"[frame] {args.scene} {W}x{H} on {card}: unprofiled s/frame "
           f"{', '.join(f'{t:.4f}' for t in times)}; {rays} rays/frame")
 
-    wrap_spans({"engine": engine, "trace": trace})
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        with torch.profiler.record_function("frame"):
-            render_frame(scn, opts, device="cuda")
-            torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = args.trace or os.path.join(tmp, "frame.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            res = analyse(json.load(f))
+    res = profile_frame(scn, opts, args.trace)
     print(f"[profile] frame span {res['span_ms']:.3f} ms under the profiler;"
           f" device busy {res['busy_ms']:.3f} ms = "
           f"{100 * res['busy_share']:.1f}% busy, "
