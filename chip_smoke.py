@@ -29,6 +29,15 @@ nonzero with no "ok" line):
        - the seeded facet scene of the card tests at 4-D and 5-D (hcube
          faces A = 3, 4, facets, hfacets) on 2^16 aimed rays, the early
          exit forced off and on, checked only;
+       - trace_any and trace_shadow, the unfused path's shadow walks, on
+         the batches apply_lights stacks from a frame's primary hits
+         (captured where it launches them): the directional shadow rays
+         of balls 1080p (trace_any, 2^20 rays), the three point lights'
+         shadow rays of test 4-D 640x480 (trace_shadow, 921600 rays, two
+         infinite leaves in the rank pass) and random150's five (the
+         capped early exit, also held to the full walk within the cap);
+       - shade_area (the shade kernel's 'a' kind): the area scene (a DISK
+         and a RECT light) at 640x480, primary and first bounce;
   4. frames on the card against the C reference's golden PNGs: balls 4-D
      f0 640x480 (RMSE < 1e-3, rows 180:260 against the CPU twins);
      anim6d 160x120 f0-f3 (rows 30:90, RMSE < 1e-3); lights3d 200x150
@@ -36,18 +45,32 @@ nonzero with no "ok" line):
      launches are counted; the test scene 4-D 640x480 (rows 220:260 RMSE <
      2e-3, the full frame within the JAX package's own f32 RMSE + 2e-4),
      3-D 320x240 and random "20" 5-D rows 60:80 of 320x240 (within the
-     JAX package's f32 RMSE + 2e-4);
-  5. the main paths, timed (warmed, median of 3 -- anim6d one frame --,
-     host clock around torch.cuda.synchronize()), each driven with the
-     launch counters set to 0 just before its first timed frame and read
-     just after: balls 1920x1080 (trace_closest, shade_carry), anim6d
-     640x480 frame 1 (trace_gated, shade_escalate, shade_local,
-     shade_point), the test scene 4-D 640x480 (shade_facets) and random
-     "150" 5-D 640x480 (trace_facets, trace_early_exit): s/frame,
-     rays/frame, Mrays/s, the probe's taint share, the tainted lanes and
-     the stack iterations; then one more frame of each of the last two
-     under torch.profiler (tools/profile_frame.py): the device's busy
-     share.
+     JAX package's f32 RMSE + 2e-4); infinite4d 240x180 on both branches
+     (within the JAX package's f32 RMSE + 2e-4); the unfused branch
+     (engine._FUSED_SHADOW = False) on balls 640x480 and test 4-D 640x480
+     within the fused frames' bars and against the fused frames (fewer
+     than 0.2% of pixels off by > 1e-3, as infinite4d's two branches);
+     the area scene's fused and unfused frames at one seed (the same
+     bar), a scene whose lights are all ambient (the unfused branch by
+     default) on the card against the CPU twins, and the soft shadow's
+     penumbra (the mean of 24 one-sample 48x36
+     frames at seeds 0..23, per DISK and RECT, tests/test_render.py's
+     check);
+  5. the main paths, timed (warmed, median of 3 -- anim6d, test 4-D and
+     random150 unfused one frame --, host clock around
+     torch.cuda.synchronize()), each driven with the launch counters set
+     to 0 just before its first timed frame and read just after: balls
+     1920x1080 (trace_closest, shade_carry), anim6d 640x480 frame 1
+     (trace_gated, shade_escalate, shade_local, shade_point), the test
+     scene 4-D 640x480 (shade_facets) and random "150" 5-D 640x480
+     (trace_facets, trace_early_exit); then the unfused branch: balls
+     1920x1080 (trace_any), test 4-D 640x480 (trace_shadow; the golden
+     phase's frame its warm-up) and random "150" (trace_shadow with the
+     capped early exit); and the area scene 640x480 on the fused branch
+     (shade_area): s/frame, rays/frame, Mrays/s, the probe's taint share,
+     the tainted lanes and the stack iterations; then one more frame of
+     test 4-D and random150 (fused) and of the three new paths under
+     torch.profiler (tools/profile_frame.py): the device's busy share.
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  JAX is never imported.
 
@@ -90,7 +113,8 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12   # H100 SXM, published
 # CPU by scripts/jax_f32_golden_rmse.py; the port's bar is each + 2e-4
 JAX_F32_RMSE = {"test_4d_full": 0.0005276095464288421,
                 "test_3d_full": 0.0014369797951582126,
-                "random_5d_rows60_80": 0.0}
+                "random_5d_rows60_80": 0.0,
+                "infinite4d_full": 0.001807589705145131}
 JAX_SLACK = 2e-4
 TEST_BAND_RMSE = 2e-3    # tests/test_render.py's f32 bar, rows 220:260
 EXIT_TIE_FRAC = 1e-3     # live hit lanes whose normal comes from a t tie
@@ -116,6 +140,12 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                          "ndt_tpu/render/pallas_trace.py:701"),
     "shade_facets": ("ndt_tpu_torch/csrc/shade.cu",
                      "ndt_tpu/render/pallas_trace.py:938"),
+    "trace_any": ("ndt_tpu_torch/csrc/trace_closest.cu",
+                  "ndt_tpu/render/pallas_trace.py:662"),
+    "trace_shadow": ("ndt_tpu_torch/csrc/trace_closest.cu",
+                     "ndt_tpu/render/pallas_trace.py:806"),
+    "shade_area": ("ndt_tpu_torch/csrc/shade.cu",
+                   "ndt_tpu/render/pallas_trace.py:1014"),
 }
 
 
@@ -206,6 +236,20 @@ def scene(name, dim, frame=0, frames=1, config=None):
 
 def balls_scene():
     return scene("balls", 4, 0, 1500)
+
+
+def area_scene(kind=None):
+    """The area scene of the port's tests (tests/_torch_common.py, which
+    imports no JAX): a sphere over a reflective floor under a DISK and a
+    RECT light, or (the penumbra check) under one light of ``kind`` over
+    a matte floor; aimed."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_common import area_light_scene, two_light_scene
+
+    scn = (two_light_scene(port=True, reflect=0.3) if kind is None
+           else area_light_scene(kind, port=True))
+    scn.cam.aim()
+    return scn
 
 
 def device_setup(scn, W, H, device):
@@ -505,11 +549,14 @@ def check_path(torch, K, sd, o, v, live, variants, results, label):
     bounce; on the primary rays also, for a variant named in ``results``,
     its time, the twin's and the bound (other names are checked only).
     variants: name -> shade mode ("carry", "escalate", "local"), or None
-    for the trace."""
-    from ndt_tpu_torch.render.trace import _shadow_culls, fused_light_info
+    for the trace.  Area lights shade at points drawn from a seeded
+    generator (trace._area_positions), the same for kernel and twin."""
+    from ndt_tpu_torch.render.trace import (_area_positions, _shadow_culls,
+                                            fused_light_info)
 
     R, D = o.shape
     kinds, lvec = fused_light_info(sd)
+    gen = torch.Generator(device="cuda").manual_seed(0)
     aux = torch.full((R,), -1, dtype=torch.int32, device="cuda")
     rng = np.random.default_rng(5)
     w, frac, color = (torch.as_tensor(x.astype(np.float32), device="cuda")
@@ -534,7 +581,9 @@ def check_path(torch, K, sd, o, v, live, variants, results, label):
               f"{'PASS' if ok else 'FAIL'}")
         ok_all &= ok
         t, mat, nrm, props = got
-        culls = _shadow_culls(sd, kinds, lvec, o, v, t, live)
+        area = _area_positions(sd, kinds, gen, R)
+        kw = {} if area is None else {"area": area}
+        culls = _shadow_culls(sd, kinds, lvec, o, v, t, live, area)
         base = (sd, o, v, t, mat, nrm, props, lvec, culls, kinds, True)
         hit = live & (t < 5e29)
         runs = {}
@@ -543,15 +592,17 @@ def check_path(torch, K, sd, o, v, live, variants, results, label):
                 continue
             if mode == "local":
                 args = base
-                kern, twin = K.shade_local, K.shade_local_ref
+                kern = (lambda *a, kw=kw: K.shade_local(*a, **kw))
+                twin = (lambda *a, kw=kw: K.shade_local_ref(*a, **kw))
                 sok, serr, smsg = compare_local(kern(*args), twin(*args),
                                                 hit)
             else:
                 args = base + (w, frac, color, live)
                 esc = mode == "escalate"
-                kern = (lambda *a, esc=esc: K.shade_carry(*a, escalate=esc))
-                twin = (lambda *a, esc=esc: K.shade_carry_ref(*a,
-                                                              escalate=esc))
+                kern = (lambda *a, esc=esc, kw=kw: K.shade_carry(
+                    *a, escalate=esc, **kw))
+                twin = (lambda *a, esc=esc, kw=kw: K.shade_carry_ref(
+                    *a, escalate=esc, **kw))
                 sok, serr, smsg = compare_shade(kern(*args), twin(*args),
                                                 live)
             print(f"[kernels] {label} {name} ({mode}, lights {kinds}) "
@@ -585,6 +636,7 @@ def check_path(torch, K, sd, o, v, live, variants, results, label):
                             2 * R * D * 4 + R * 29
                             + (R if mode == "escalate" else 0))
                     nbytes = (call_bytes(o, v, t, mat, nrm, props, lvec)
+                              + (call_bytes(area) if kw else 0)
                               + sum(call_bytes(*c) for c in culls)
                               + table_bytes(sd) + outs
                               + (0 if mode == "local" else
@@ -604,7 +656,7 @@ def check_path(torch, K, sd, o, v, live, variants, results, label):
                           f"early exit (gid-ordered lists): kernel {ms:.4f} "
                           f"ms device time (mean of 20, queue pre-filled)")
             o2, v2, _, _, _, nxt = K.shade_carry_ref(
-                *(base + (w, frac, color, live)))
+                *(base + (w, frac, color, live)), **kw)
             o, v, live = o2.contiguous(), v2.contiguous(), nxt
     return ok_all
 
@@ -626,6 +678,123 @@ def facet_batch(dim):
     o, v, live = aimed_rays(sd.host, [20.0] + [0.0] * (dim - 1), seed=dim,
                             R=1 << 16)
     return sd, *(torch.as_tensor(x, device="cuda") for x in (o, v, live))
+
+
+@contextlib.contextmanager
+def captured(module, name):
+    """Record the arguments of every call of module.name in the block:
+    yields the list of (args, kwargs)."""
+    orig = getattr(module, name)
+    calls = []
+
+    def wrapped(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def stacked_walks(torch, scn, W, H, limit=None):
+    """The unfused path's shadow-walk launches of one frame's primary hits:
+    the scene's primary rays (the first ``limit``: one bounce-loop batch)
+    traced (trace.trace), then apply_lights, its
+    trace_any and trace_shadow calls captured with their arguments (the
+    stacked, padded, culled batches as the main path builds them).
+    Returns (sd, {"trace_any": [args], "trace_shadow": [args]})."""
+    from ndt_tpu_torch.render import trace as T
+    from ndt_tpu_torch.render.shade import apply_lights
+
+    sd, o, v, live = quiet(primary_rays, scn, W, H, limit)
+    tr = T.trace(sd, o, v, live=live)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with captured(T, "trace_any") as any_calls, \
+            captured(T, "trace_shadow") as sh_calls:
+        apply_lights(sd, o, v, tr, tr.hit & live, gen=gen)
+    return sd, {"trace_any": [a for a, _ in any_calls],
+                "trace_shadow": [a for a, _ in sh_calls]}
+
+
+def compare_walk(a, b, live):
+    """(t, mat) of a walk against another: the f32 trace bar on live
+    lanes."""
+    return compare_trace((a[0], a[1], None, None), (b[0], b[1], None, None),
+                         live)
+
+
+def check_walks(torch, K, scn, W, H, results, label, name, limit=None):
+    """Kernel ``name`` (trace_any or trace_shadow) against its twin on each
+    batch the unfused path launches for the primary hits of a W x H frame
+    of ``scn``; with the early exit also the capped shadow exit against
+    the full walk (t and material equal where the full walk's winner is
+    within limit * (1 + 1e-3) + 0.01, beyond it both beyond it).  The
+    first batch is timed, and its numbers go into ``results`` when the
+    kernel has none yet."""
+    from ndt_tpu_torch.constants import BIG
+    from ndt_tpu_torch.mathnd import fma
+
+    sd, calls = stacked_walks(torch, scn, W, H, limit)
+    kern = getattr(K, name)
+    twin = getattr(K, name + "_ref")
+    ok = bool(calls[name])
+    for i, args in enumerate(calls[name]):
+        o, v, aux, lists, counts = args[1:6]
+        reach, live = (args[6:] + (None, None))[:2]
+        lv = live if live is not None else torch.ones(
+            o.shape[0], dtype=torch.bool, device="cuda")
+        got, ref = kern(*args), twin(*args)
+        wok, err, msg = compare_walk(got, ref, lv)
+        exit_ = reach is not None
+        if exit_ and name == "trace_shadow":
+            full = kern(*args[:4], *K.cull_lists(sd, o, v, live=lv,
+                                                 limit=aux))
+            cap = fma(aux, 1.001, 0.01)
+            within = lv & (full[0] <= cap)
+            eok = (bool((got[0] == full[0])[within].all())
+                   and bool((got[1] == full[1])[within].all())
+                   and bool((got[0] > cap)[lv & ~within].all()))
+            wok &= eok
+            msg += (f"; capped exit vs full walk: equal within the cap "
+                    f"({int(within.sum())} lanes) and beyond it beyond: "
+                    f"{eok}")
+        print(f"[kernels] {label} {name}{' (early exit)' if exit_ else ''} "
+              f"batch {i} R={o.shape[0]} live={int(lv.sum())}: {msg} -> "
+              f"{'PASS' if wok else 'FAIL'}")
+        ok &= wok
+        if i:
+            continue
+        r = dict(results[name]) if "ms" in results[name] else results[name]
+        r["max_abs_err"] = err
+        r["ms"] = cuda_ms(lambda: kern(*args), 20, prefill=True)
+        r["plain_ms"] = cuda_ms(lambda: twin(*args), 3)
+        r["library_ms"] = None   # no one PyTorch call computes it
+        t = got[0]
+        nbytes = (call_bytes(*(x for x in args[1:] if x is not None))
+                  + table_bytes(sd) + call_bytes(*got))
+        lim = t if name == "trace_any" else torch.minimum(
+            t, fma(aux, 1.001, 0.01))
+        ops = (exit_walk_ops(sd, counts, reach, torch.where(
+            t < BIG * 0.5, lim, BIG), lv) if exit_
+            else walk_ops(sd, lists, counts))
+        if name == "trace_shadow":         # the rank pass, every lane
+            fops = solve_ops(sd)
+            ops += o.shape[0] * sum(fops[K._gid_family(sd, g)[0]]
+                                    for g, _ in sd.inf_gids)
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+        print(f"[kernels] {label} {name} at {o.shape[0]} rays: kernel "
+              f"{r['ms']:.4f} ms device time (mean of 20, queue "
+              f"pre-filled), twin {r['plain_ms']:.3f} ms (mean of 3), bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes / 1e6:.2f}"
+              f" MB, {ops / 1e9:.3f} GFLOP)")
+        if exit_:
+            full = args[:4] + K.cull_lists(sd, o, v, live=lv, limit=aux)
+            ms = cuda_ms(lambda: kern(*full), 20, prefill=True)
+            print(f"[kernels] {label} the same {name} without the early "
+                  f"exit: kernel {ms:.4f} ms device time (mean of 20)")
+    return ok
 
 
 def phase_kernels(torch, K, results):
@@ -667,6 +836,23 @@ def phase_kernels(torch, K, results):
                              f"{sd.n_total} leaves, exit "
                              f"{'on' if exit_ else 'off'})")
         K.EE_MIN_OBJECTS = ee_min
+    # the unfused path's walks and the area lights' shade kind
+    ok &= check_walks(torch, K, balls_scene(), 1920, 1080, results,
+                      "balls 1080p", "trace_any", limit=1 << 20)
+    ok &= check_walks(torch, K, scene("test", 4), 640, 480, results,
+                      "test 4-D 640x480", "trace_shadow")
+    ok &= check_walks(torch, K, scene("infinite4d", 4), 240, 180, results,
+                      "infinite4d 240x180", "trace_any")
+    ok &= check_walks(torch, K, scene("infinite4d", 4), 240, 180, results,
+                      "infinite4d 240x180", "trace_shadow")
+    ok &= check_walks(torch, K, quiet(scene, "random", 5, config="150"),
+                      640, 480, results, "random150 5-D 640x480",
+                      "trace_shadow")
+    ok &= check_path(torch, K, *primary_rays(area_scene(), 640, 480),
+                     {"trace": None, "shade_area": "carry",
+                      "shade (local)": "local",
+                      "shade (escalate)": "escalate"}, results,
+                     "area 640x480")
     return ok
 
 
@@ -695,6 +881,7 @@ def phase_golden(torch, K, card, results):
     opts = RenderOptions(width=W, height=H)
     img, _, rays = render_frame(balls_scene(), opts)
     torch.cuda.synchronize()
+    fused = {"balls": img}
     ok = img.shape == (H, W, 3) and bool(np.isfinite(img).all())
     err = rmse(linear_to_bytes(img) / 255.0, golden("balls_4d_640x480_f0.png"))
     ok &= err < GOLDEN_RMSE
@@ -705,12 +892,10 @@ def phase_golden(torch, K, card, results):
     xx, yy = _pixel_grid(W, H, np.float32)
     c, _, _ = render_tile(sd, cam, torch.as_tensor(xx[rows].ravel()),
                           torch.as_tensor(yy[rows].ravel()), opts)
-    d = np.abs(img[rows] - c.numpy().reshape(-1, W, 3)).max(-1)
-    off = float((d > PIXEL_TOL).mean())
-    ok &= off < PIXEL_FRAC
-    print(f"[golden] rows 180:260 card vs CPU twins: max |diff| "
-          f"{d.max():.3e}, pixels > {PIXEL_TOL}: {off:.6f} (bar "
-          f"{PIXEL_FRAC}) -> {'PASS' if off < PIXEL_FRAC else 'FAIL'}")
+    rok, msg = frame_agree(img[rows], c.numpy().reshape(-1, W, 3))
+    ok &= rok
+    print(f"[golden] rows 180:260 card vs CPU twins: {msg} -> "
+          f"{'PASS' if rok else 'FAIL'}")
 
     W, H, rows = 160, 120, slice(30, 90)
     for frame in range(4):
@@ -758,6 +943,7 @@ def phase_golden(torch, K, card, results):
         img, _, rays = quiet(render_frame, scene(name, dim, config=config),
                              RenderOptions(width=W, height=H))
         torch.cuda.synchronize()
+        fused[key] = img
         mine, ref = linear_to_bytes(img) / 255.0, golden(gold)
         err = rmse(mine[rows], ref[rows])
         bar = JAX_F32_RMSE[key] + JAX_SLACK
@@ -773,6 +959,130 @@ def phase_golden(torch, K, card, results):
               f"{rows.stop}: RMSE {err:.3e} (bar {bar:.3e}: the JAX "
               f"package's f32 {JAX_F32_RMSE[key]:.3e} + {JAX_SLACK}){extra}"
               f", rays {rays} -> {'PASS' if fok else 'FAIL'}")
+    return ok & phase_unfused_golden(torch, fused)
+
+
+@contextlib.contextmanager
+def branch(fused):
+    """The engine's fused (True) or unfused (False) branch in the block
+    (engine._FUSED_SHADOW, what NDT_FUSED_SHADOW selects)."""
+    from ndt_tpu_torch.render import engine
+
+    old = engine._FUSED_SHADOW
+    engine._FUSED_SHADOW = fused
+    try:
+        yield
+    finally:
+        engine._FUSED_SHADOW = old
+
+
+def frame_agree(a, b):
+    """(ok, message): fewer than PIXEL_FRAC of pixels off by > PIXEL_TOL."""
+    d = np.abs(a - b).max(-1)
+    off = float((d > PIXEL_TOL).mean())
+    return off < PIXEL_FRAC, (f"max |diff| {d.max():.3e}, pixels > "
+                              f"{PIXEL_TOL}: {off:.6f} (bar {PIXEL_FRAC})")
+
+
+def phase_unfused_golden(torch, fused):
+    """The unfused branch against the C goldens and the fused frames:
+    infinite4d 240x180 on both branches (the JAX package's f32 RMSE +
+    2e-4); balls and test 4-D 640x480 unfused within their fused frames'
+    bars and against those frames; the area scene's two branches at one
+    seed; the area lights' penumbra."""
+    from ndt_tpu_torch.image import linear_to_bytes
+    from ndt_tpu_torch.render.engine import RenderOptions, render_frame
+
+    ok = True
+    W, H = 240, 180
+    bar = JAX_F32_RMSE["infinite4d_full"] + JAX_SLACK
+    imgs = {}
+    for fz in (True, False):
+        with branch(fz):
+            imgs[fz], _, rays = render_frame(scene("infinite4d", 4),
+                                             RenderOptions(width=W,
+                                                           height=H))
+        err = rmse(linear_to_bytes(imgs[fz]) / 255.0,
+                   golden("infinite4d_4d_240x180_f0.png"))
+        fok = bool(np.isfinite(imgs[fz]).all()) and err <= bar
+        ok &= fok
+        print(f"[golden] infinite4d 4-D {W}x{H} "
+              f"{'fused' if fz else 'unfused'}: RMSE {err:.3e} (bar "
+              f"{bar:.3e}: the JAX package's f32 "
+              f"{JAX_F32_RMSE['infinite4d_full']:.3e} + {JAX_SLACK}), rays "
+              f"{rays} -> {'PASS' if fok else 'FAIL'}")
+    aok, msg = frame_agree(imgs[False], imgs[True])
+    ok &= aok
+    print(f"[golden] infinite4d unfused vs fused on the card: {msg} -> "
+          f"{'PASS' if aok else 'FAIL'}")
+
+    W, H = 640, 480
+    for key, name, gold in (("balls", "balls 4-D f0",
+                             "balls_4d_640x480_f0.png"),
+                            ("test_4d_full", "test 4-D f0",
+                             "test_4d_640x480_f0.png")):
+        scn = balls_scene() if key == "balls" else scene("test", 4)
+        with branch(False):
+            img, _, rays = render_frame(scn, RenderOptions(width=W,
+                                                           height=H))
+        torch.cuda.synchronize()
+        mine, ref = linear_to_bytes(img) / 255.0, golden(gold)
+        err = rmse(mine, ref)
+        if key == "balls":
+            bars = [("full", err, GOLDEN_RMSE)]
+        else:
+            bars = [("full", err, JAX_F32_RMSE[key] + JAX_SLACK),
+                    ("rows 220:260", rmse(mine[220:260], ref[220:260]),
+                     TEST_BAND_RMSE)]
+        gok = bool(np.isfinite(img).all()) and all(e <= b
+                                                   for _, e, b in bars)
+        aok, msg = frame_agree(img, fused[key])
+        ok &= gok and aok
+        errs = ", ".join(f"{n} RMSE {e:.3e} (bar {b:.3e})"
+                         for n, e, b in bars)
+        print(f"[golden] {name} {W}x{H} unfused: {errs}, rays {rays}; vs "
+              f"the fused frame: {msg} -> "
+              f"{'PASS' if gok and aok else 'FAIL'}")
+
+    W, H = 160, 120
+    area = {}
+    for fz in (True, False):
+        with branch(fz):
+            area[fz], _, _ = render_frame(area_scene(),
+                                          RenderOptions(width=W, height=H,
+                                                        seed=3))
+    aok, msg = frame_agree(area[False], area[True])
+    aok &= bool(np.isfinite(area[False]).all())
+    ok &= aok
+    print(f"[golden] area scene (DISK + RECT) {W}x{H} seed 3, unfused vs "
+          f"fused: {msg} -> {'PASS' if aok else 'FAIL'}")
+    from _torch_common import penumbra, small_scene
+
+    # every light ambient: no fused light table, the unfused branch by
+    # default, on the card and on the CPU twins
+    opts = RenderOptions(width=64, height=48)
+    card_img, _, rays = render_frame(small_scene(port=True,
+                                                 ambient_only=True), opts)
+    cpu_img, _, _ = render_frame(small_scene(port=True, ambient_only=True),
+                                 opts, device="cpu")
+    aok, msg = frame_agree(card_img, cpu_img)
+    aok &= bool(np.isfinite(card_img).all()) and rays >= 64 * 48
+    ok &= aok
+    print(f"[golden] all-ambient scene 64x48 (the unfused branch by "
+          f"default), card vs CPU twins: {msg}, rays {rays} -> "
+          f"{'PASS' if aok else 'FAIL'}")
+
+    for kind in ("DISK", "RECT"):
+        scn = area_scene(kind)
+        lit, dark, mid = penumbra(np.mean(
+            [render_frame(scn, RenderOptions(width=48, height=36, seed=s))[0]
+             for s in range(24)], 0))
+        pok = lit > 2.5 * dark + 1e-3 and mid >= 3
+        ok &= pok
+        print(f"[golden] {kind} light penumbra, mean of 24 one-sample 48x36 "
+              f"frames (seeds 0..23): lit {lit:.4f}, dark {dark:.4f} (want "
+              f"lit > 2.5 dark + 1e-3), penumbra pixels {mid} (want >= 3) "
+              f"-> {'PASS' if pok else 'FAIL'}")
     return ok
 
 
@@ -803,9 +1113,9 @@ def engine_counters(engine):
         c["stack_iters"] += 1
         return orig["_stack_body"](*a)
 
-    def run_stack(scn, light_info, o, v, opts):
+    def run_stack(scn, light_info, o, *a):
         c["stack_lanes"] += o.shape[0]
-        return orig["_run_stack"](scn, light_info, o, v, opts)
+        return orig["_run_stack"](scn, light_info, o, *a)
 
     for n, f in zip(names, (probe, chain, stack, run_stack)):
         setattr(engine, n, f)
@@ -817,15 +1127,16 @@ def engine_counters(engine):
 
 
 def timed_frames(torch, K, scn, opts, names, results, label, card,
-                 reps=3, also=()):
-    """Warm-up, then ``reps`` frames; the counters are set to 0 right
-    before the first timed frame and read right after it.  ``names``: the
-    kernels whose launches this path records; ``also``: kernels it must
-    launch too."""
+                 reps=3, also=(), warm=True):
+    """Warm-up (unless the caller rendered this frame just before), then
+    ``reps`` frames; the counters are set to 0 right before the first
+    timed frame and read right after it.  ``names``: the kernels whose
+    launches this path records; ``also``: kernels it must launch too."""
     from ndt_tpu_torch.render import engine
 
-    quiet(engine.render_frame, scn, opts)             # warm-up
-    torch.cuda.synchronize()
+    if warm:
+        quiet(engine.render_frame, scn, opts)
+        torch.cuda.synchronize()
     times = []
     for i in range(reps):
         if i == 0:
@@ -892,8 +1203,10 @@ def phase_frames(torch, K, card, results):
                        reps=1)
     opts = RenderOptions(width=640, height=480)
     test4 = scene("test", 4)
+    # one timed frame (its profiled frame below is another sample): the
+    # host-bound stack frames take 10-16 s each
     ok &= timed_frames(torch, K, test4, opts, ("shade_facets",), results,
-                       "test 4-D f0", card,
+                       "test 4-D f0", card, reps=1,
                        also=("trace_gated", "trace_facets", "shade_point"))
     ok &= busy_share(test4, opts, "test 4-D f0")
     r150 = quiet(scene, "random", 5, config="150")
@@ -902,6 +1215,29 @@ def phase_frames(torch, K, card, results):
                        "random150 5-D f0", card,
                        also=("trace_gated", "shade_facets", "shade_point"))
     ok &= busy_share(r150, opts, "random150 5-D f0")
+
+    # the unfused branch (trace, apply_lights) and the area lights
+    with branch(False):
+        hd = RenderOptions(width=1920, height=1080)
+        ok &= timed_frames(torch, K, balls_scene(), hd, ("trace_any",),
+                           results, "balls 4-D f0 unfused", card,
+                           also=("trace_closest",))
+        ok &= busy_share(balls_scene(), hd, "balls 4-D f0 unfused")
+        # the golden phase rendered this frame on this branch (every kernel
+        # and torch op of it has run): one timed frame, no warm-up
+        ok &= timed_frames(torch, K, test4, opts, ("trace_shadow",), results,
+                           "test 4-D f0 unfused", card, reps=1, warm=False,
+                           also=("trace_gated", "trace_facets"))
+        ok &= busy_share(test4, opts, "test 4-D f0 unfused")
+        # the shadow walk's capped early exit on its main path
+        ok &= timed_frames(torch, K, r150, opts, (), results,
+                           "random150 5-D f0 unfused", card, reps=1,
+                           also=("trace_shadow", "trace_early_exit"))
+    area = area_scene()
+    ok &= timed_frames(torch, K, area, opts, ("shade_area",), results,
+                       "area (DISK + RECT) f0", card,
+                       also=("trace_closest", "shade_carry"))
+    ok &= busy_share(area, opts, "area (DISK + RECT) f0")
     return ok
 
 

@@ -8,8 +8,9 @@
 //   * escalate (L1112-1119): carry, and a live lane whose winner is
 //     transparent taints and freezes (nxt false), for the stack re-run;
 //   * local (L1075-1078): the local colour only, for the stack loop.
-// Lights (L1001-1049): ambient, directional ('d'), point ('p') and spot
-// ('s'); the C entry refuses any other kind.  The shadow walks run all five
+// Lights (L1001-1049): ambient, directional ('d'), point ('p'), spot ('s')
+// and area ('a': a DISK or RECT light, L1014-1018); the C entry refuses any
+// other kind.  The shadow walks run all five
 // families: spheres, planes, quadrics, facets and hfacets (L930-943).
 // Built once per D (-DNDT_DIM, kernels/build.py) with an instance for each
 // quadric axis count A (families.cuh dispatch_a).  Per ray:
@@ -24,6 +25,9 @@
 //     in which an infinite candidate ranked after it is skipped.  Lit iff
 //     that hit is the shaded object (same material) within EPSILON^2 of the
 //     shaded point; a spot also needs the cone test cos >= cutoff;
+//   * 'a': a point light whose position is this ray's sampled point on the
+//     light's surface (ndt.c:116-147), read from the area array (one
+//     [R, D] slab per area light, in light order) instead of the table;
 //   * the two-sided test, |cos| / dist^2 diffuse for opaque winners, the
 //     C's mag-0.5 specular with x^50 by the same binary powering as _ipow;
 //   * carry: color += w * node (background on a live miss), the 1/512
@@ -131,7 +135,8 @@ shade_kernel(NdtTables tb, const float* __restrict__ o,
              const float* __restrict__ v, const float* __restrict__ t,
              const int* __restrict__ mat, const float* __restrict__ nrm,
              const float* __restrict__ props, const float* __restrict__ lvec,
-             LightKinds kinds, const int* __restrict__ lists,
+             LightKinds kinds, const float* __restrict__ area,
+             const int* __restrict__ lists,
              const int* __restrict__ counts, int n_list, int specular,
              int spec_pow, int mode, const float* __restrict__ w,
              const float* __restrict__ frac,
@@ -173,7 +178,7 @@ shade_kernel(NdtTables tb, const float* __restrict__ o,
 #pragma unroll
   for (int j = 0; j < 3; ++j) out[j] = wc[j] * __ldg(lvec + j);  // ambient
 
-  int off = 6;
+  int off = 6, a_i = 0;
   for (int li = 0; li < kinds.n; ++li) {
     const char kind = kinds.k[li];
     float lcol[3], lspec[3], lvu[D];
@@ -183,7 +188,7 @@ shade_kernel(NdtTables tb, const float* __restrict__ o,
       lspec[j] = __ldg(lvec + off + 3 + j);
     }
     const float* geo = lvec + off + 6;
-    off += 6 + (kind == 's' ? 2 * D + 1 : D);
+    off += 6 + (kind == 's' ? 2 * D + 1 : kind == 'a' ? 0 : D);
     const size_t row = (size_t)li * n_tiles + tile;
     const int* lst = lists + row * n_list;
     const int* cnt = counts + row * N_FAMS;
@@ -201,11 +206,14 @@ shade_kernel(NdtTables tb, const float* __restrict__ o,
       shadow_ok = !any_hit<D, A>(tb, lst, cnt, so, sv);
       ldist2 = 1.f;
     } else {
-      // point / spot (ndt.c:209-228): from the light toward the surface
+      // point / spot / area (ndt.c:209-228): from the light toward the
+      // surface
       float lp[D], sd[D];
+      const float* pos =
+          kind == 'a' ? area + ((size_t)(a_i++) * R + r) * D : geo;
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        lp[d] = __ldg(geo + d);
+        lp[d] = __ldg(pos + d);
         sd[d] = p[d] - lp[d];
       }
       ldist2 = dotc<D>(sd, sd);
@@ -307,8 +315,10 @@ shade_kernel(NdtTables tb, const float* __restrict__ o,
 
 }  // namespace
 
-// kinds: n_lights chars of 'd' / 'p' / 's'; lists [n_lights, R/RT, n_list],
-// counts [n_lights, R/RT, 5]: each light's shadow-ray cull.  mode 0 carry,
+// kinds: n_lights chars of 'd' / 'p' / 's' / 'a'; area [n_area, R, D]: the
+// sampled positions of the 'a' lights in light order (null without one);
+// lists [n_lights, R/RT, n_list], counts [n_lights, R/RT, 5]: each light's
+// shadow-ray cull.  mode 0 carry,
 // 1 escalate (taint written), 2 local (only loc written; the carry arrays
 // may be null).  R must be a multiple of RT.  Returns a cudaError_t, -1
 // when no kernel instance fits a_quad, R or the mode, -2 for a light kind
@@ -316,7 +326,8 @@ shade_kernel(NdtTables tb, const float* __restrict__ o,
 extern "C" int NDT_ENTRY(ndt_shade)(
     const NdtTables* tb, const float* o, const float* v, const float* t,
     const int* mat, const float* nrm, const float* props, const float* lvec,
-    const char* kinds, int n_lights, const int* lists, const int* counts,
+    const char* kinds, int n_lights, const float* area, const int* lists,
+    const int* counts,
     int n_list, int specular, int spec_pow, int mode, const float* w,
     const float* frac, const float* color, const unsigned char* live,
     float* o2, float* v2, float* w2, float* f2, float* c2, unsigned char* nxt,
@@ -324,17 +335,23 @@ extern "C" int NDT_ENTRY(ndt_shade)(
   if (n_lights < 1 || n_lights > MAX_LIGHTS) return -2;
   LightKinds lk;
   lk.n = n_lights;
+  bool has_area = false;
   for (int li = 0; li < n_lights; ++li) {
-    if (kinds[li] != 'd' && kinds[li] != 'p' && kinds[li] != 's') return -2;
+    if (kinds[li] != 'd' && kinds[li] != 'p' && kinds[li] != 's' &&
+        kinds[li] != 'a')
+      return -2;
+    has_area |= kinds[li] == 'a';
     lk.k[li] = kinds[li];
   }
+  if (has_area && !area) return -2;
   if (R % RT || mode < CARRY || mode > LOCAL || tb->dim != NDT_DIM)
     return -1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch_a<NDT_DIM>(tb->a_quad, [&](auto a) {
     shade_kernel<NDT_DIM, decltype(a)::value>
         <<<R / THREADS, THREADS, 0, s>>>(
-            *tb, o, v, t, mat, nrm, props, lvec, lk, lists, counts, n_list,
+            *tb, o, v, t, mat, nrm, props, lvec, lk, area, lists, counts,
+            n_list,
             specular, spec_pow, mode, w, frac, color, live, o2, v2, w2, f2,
             c2, nxt, taint, loc, R);
     return (int)cudaGetLastError();

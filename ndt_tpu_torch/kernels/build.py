@@ -122,8 +122,12 @@ def load_library():
             fn = getattr(lib, f"ndt_trace_closest_d{d}")
             fn.argtypes = [_P] * 8 + [_I] + [_P] * 5 + [_I, _P]
             fn.restype = _I
+            for name in ("ndt_trace_any", "ndt_trace_shadow"):
+                fn = getattr(lib, f"{name}_d{d}")
+                fn.argtypes = [_P] * 8 + [_I] + [_P] * 2 + [_I, _P]
+                fn.restype = _I
             fn = getattr(lib, f"ndt_shade_d{d}")
-            fn.argtypes = ([_P] * 8 + [ctypes.c_char_p, _I] + [_P] * 2
+            fn.argtypes = ([_P] * 8 + [ctypes.c_char_p, _I] + [_P] * 3
                            + [_I] * 4 + [_P] * 12 + [_I, _P])
             fn.restype = _I
         _lib = lib

@@ -13,15 +13,26 @@ Counterpart of ``ndt_tpu/render/pallas_trace.py``:
                        (_row_gate_pierce L264), and the front-to-back early
                        exit over reach-sorted lists (L701-743):
                        csrc/trace_closest.cu, twin trace_closest_ref
+  trace_any         <- pallas_trace(mode="any") (L662-770): the closest t
+                       and material without normal or props, the per-ray
+                       excluded material: csrc/trace_closest.cu, twin
+                       trace_any_ref
+  trace_shadow      <- pallas_trace(mode="shadow") (L806-881): the per-ray
+                       f32 limit, the first-rank pass over every infinite
+                       leaf (first_rank_pass L946), the rank-eligible
+                       closest walk and its exit capped at
+                       limit * (1 + 1e-3) + 0.01 (L833):
+                       csrc/trace_closest.cu, twin trace_shadow_ref
   shade_carry       <- pallas_shade(carry=...) (L1128, _make_shade_kernel
                        L886), optionally with escalate (L1112-1119):
                        csrc/shade.cu, twin shade_carry_ref
   shade_local       <- pallas_shade(carry=None) (L1075-1078): the local
                        colour only, csrc/shade.cu, twin shade_local_ref
 
-Both shade entry points take ambient, directional ('d'), point ('p') and
-spot ('s') lights (L1001-1049) and walk all five families; area lights
-raise.
+Both shade entry points take ambient, directional ('d'), point ('p'),
+spot ('s') and area ('a', L1014-1018: a point light at a per-ray sampled
+position, passed in as ``area``) lights (L1001-1049) and walk all five
+families.
 
 A wrapper takes its twin only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises.  The twins are vectorised over [rays,
@@ -55,26 +66,29 @@ NOTINF = (1 << 30) - 1
 # family evaluated at once: bound the [rays, candidates] temporaries
 _REF_CHUNK = 16 * RT
 _K_CHUNK = 64
-LIGHT_KINDS = "dps"   # directional, point, spot
+LIGHT_KINDS = "dpsa"   # directional, point, spot, area (DISK / RECT)
 # leaves from which the closest-hit walk runs reach-sorted lists with the
 # early exit (pallas_trace._EE_MIN_OBJECTS): below it every tile lists
 # every object anyway and the sort costs more than the exit saves
 EE_MIN_OBJECTS = 192
 
 # Launches per kernel variant, counted where a wrapper launches a kernel.
-# A trace launch counts once under "trace_gated" for a scene with
-# orthotope slabs, several quadric axes or kd gates, else under
-# "trace_closest"; once more under "trace_facets" when the scene has
-# facets or hfacets, and once more under "trace_early_exit" when it walks
-# reach-sorted lists with the early exit.  A shade launch counts once
-# under its mode ("shade_carry", "shade_escalate", "shade_local"), once
-# more under "shade_point" / "shade_spot" when its lights include a point /
-# spot light, and once more under "shade_facets" when the scene has
-# facets or hfacets.
+# A closest-mode trace launch counts once under "trace_gated" for a scene
+# with orthotope slabs, several quadric axes or kd gates, else under
+# "trace_closest"; an any / shadow mode launch under "trace_any" /
+# "trace_shadow".  Any trace launch counts once more under "trace_facets"
+# when the scene has facets or hfacets, and once more under
+# "trace_early_exit" when it walks reach-sorted lists with the early exit.
+# A shade launch counts once under its mode ("shade_carry",
+# "shade_escalate", "shade_local"), once more under "shade_point" /
+# "shade_spot" / "shade_area" when its lights include a point / spot /
+# area light, and once more under "shade_facets" when the scene has facets
+# or hfacets.
 launch_counts = {k: 0 for k in (
-    "trace_closest", "trace_gated", "trace_facets", "trace_early_exit",
-    "shade_carry", "shade_escalate", "shade_local", "shade_point",
-    "shade_spot", "shade_facets")}
+    "trace_closest", "trace_gated", "trace_any", "trace_shadow",
+    "trace_facets", "trace_early_exit", "shade_carry", "shade_escalate",
+    "shade_local", "shade_point", "shade_spot", "shade_area",
+    "shade_facets")}
 
 
 def reset_launch_counts():
@@ -603,7 +617,7 @@ def _ray_chunks(R):
 
 
 def _closest_ref(scn: DeviceScene, lists, counts, o, v, excl=None,
-                 first_rank=None, reach=None, live=None):
+                 first_rank=None, reach=None, live=None, cap=None):
     """Per ray, the closest hit over its tile's candidate list in list
     order with a strict ``<`` (an earlier candidate wins a tie: first-index
     argmin; NaN never wins).  o / v: D components, each a per-ray [R]
@@ -617,7 +631,10 @@ def _closest_ref(scn: DeviceScene, lists, counts, o, v, excl=None,
     and so is every candidate of a ``live`` False lane.  With reach a
     lower bound of the candidate's t, the best t before a candidate is the
     running minimum over all candidates before it, so the skip is a mask;
-    the winners are those of the full walk.
+    the winners are those of the full walk.  ``cap`` [R] (the shadow
+    mode's limit * (1 + 1e-3) + 0.01): the best t the skip compares with
+    is capped there, so a lane whose best lies beyond it may stop early
+    with another winner beyond it.
 
     Returns (t [R] (BIG on a miss), mat [R] i32 (-1), family index [R]
     (-1 on a miss), local row [R])."""
@@ -659,6 +676,9 @@ def _closest_ref(scn: DeviceScene, lists, counts, o, v, excl=None,
                 if reach is not None:
                     before = torch.cat([t1[..., None], t[..., :-1]],
                                        -1).cummin(-1).values
+                    if cap is not None:
+                        before = torch.minimum(before,
+                                               per_ray(cap, r0, r1, nt))
                     take = reach[tiles, off + k0:off + k0 + t.shape[-1]][
                         :, None, :] <= before
                     if live is not None:
@@ -783,6 +803,92 @@ def trace_closest(scn: DeviceScene, o, v, aux, lists, counts, reach=None,
     return t, m, nrm, props
 
 
+def trace_any_ref(scn: DeviceScene, o, v, aux, lists, counts, reach=None,
+                  live=None):
+    """Plain twin of the trace kernel in any mode: trace_closest_ref's t
+    and material alone (no normal, no props).  Returns t [R] f32 (BIG on
+    a miss), mat [R] i32 (-1)."""
+    D = o.shape[1]
+    t, mat, _, _ = _closest_ref(scn, lists, counts,
+                                [o[:, d] for d in range(D)],
+                                [v[:, d] for d in range(D)], excl=aux,
+                                reach=reach, live=live)
+    return t, mat
+
+
+def trace_shadow_ref(scn: DeviceScene, o, v, limit, lists, counts,
+                     reach=None, live=None):
+    """Plain twin of the trace kernel in shadow mode (pallas_trace
+    L806-881): the lowest shadow rank among the scene's infinite leaves
+    hit within ``limit`` [R] f32 (every infinite leaf, listed or not),
+    then the closest hit over the list in which an infinite candidate
+    ranked after it is skipped.  With ``reach`` and ``live`` the early
+    exit, its best t capped at limit * (1 + 1e-3) + 0.01.  Returns t [R]
+    f32 (BIG on a miss), mat [R] i32 (-1)."""
+    D = o.shape[1]
+    oc = [o[:, d] for d in range(D)]
+    vc = [v[:, d] for d in range(D)]
+    fr = _first_rank_ref(scn, oc, vc, limit)
+    cap = fma(limit, 1.001, 0.01) if reach is not None else None
+    t, mat, _, _ = _closest_ref(scn, lists, counts, oc, vc, first_rank=fr,
+                                reach=reach, live=live, cap=cap)
+    return t, mat
+
+
+def _check_walk(scn, o, v, aux, aux_dtype, lists, counts, reach, live):
+    R = o.shape[0]
+    _check_rays(scn, o, v, lists, counts)
+    _check("aux", aux, (R,), aux_dtype, scn.device)
+    if (reach is None) != (live is None):
+        raise ValueError("the early exit takes both reach and live")
+    if reach is not None:
+        _check("reach", reach, lists.shape, torch.float32, scn.device)
+        _check("live", live, (R,), torch.bool, scn.device)
+
+
+def _launch_walk(name, scn, o, v, aux, lists, counts, reach, live):
+    """Launch ndt_trace_any / ndt_trace_shadow: (t, mat)."""
+    R = o.shape[0]
+    fn = _entry(o, f"ndt_{name}", scn.dim)
+    t = torch.empty(R, dtype=torch.float32, device=o.device)
+    m = torch.empty(R, dtype=torch.int32, device=o.device)
+    tables = _c_tables(scn)
+    err = fn(ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists),
+             _p(counts), _p(reach), _p(live), lists.shape[1], _p(t), _p(m),
+             R, _stream())
+    _raise_on(err, name)
+    launch_counts[name] += 1
+    if has_facets(scn):
+        launch_counts["trace_facets"] += 1
+    if reach is not None:
+        launch_counts["trace_early_exit"] += 1
+    return t, m
+
+
+def trace_any(scn: DeviceScene, o, v, aux, lists, counts, reach=None,
+              live=None):
+    """Closest t and material (see trace_any_ref): the twin on the CPU,
+    the trace kernel in any mode on the card.  aux: [R] i32 excluded
+    material."""
+    _check_walk(scn, o, v, aux, torch.int32, lists, counts, reach, live)
+    if o.device.type == "cpu":
+        return trace_any_ref(scn, o, v, aux, lists, counts, reach, live)
+    return _launch_walk("trace_any", scn, o, v, aux, lists, counts, reach,
+                        live)
+
+
+def trace_shadow(scn: DeviceScene, o, v, limit, lists, counts, reach=None,
+                 live=None):
+    """The point-light shadow walk (see trace_shadow_ref): the twin on the
+    CPU, the trace kernel in shadow mode on the card.  limit: [R] f32."""
+    _check_walk(scn, o, v, limit, torch.float32, lists, counts, reach, live)
+    if o.device.type == "cpu":
+        return trace_shadow_ref(scn, o, v, limit, lists, counts, reach,
+                                live)
+    return _launch_walk("trace_shadow", scn, o, v, limit, lists, counts,
+                        reach, live)
+
+
 # --------------------------------------------------------------------------
 # kernel 2: fused shading, then the chain bounce (carry) or the local
 # colour alone
@@ -805,12 +911,13 @@ def _ipow(x, n):
 def light_fields(kinds, D):
     """Offsets into the fused light table (trace.fused_light_info): per
     light (kind, colour, spec colour, geometry), the geometry being the
-    unit direction ('d') or the position ('p', 's'; a spot's unit axis
-    follows at +D and its cosine cutoff at +2D); and the table length."""
+    unit direction ('d'), the position ('p', 's'; a spot's unit axis
+    follows at +D and its cosine cutoff at +2D) or nothing ('a': its
+    position is per ray); and the table length."""
     out, off = [], 6
     for k in kinds:
         out.append((k, off, off + 3, off + 6))
-        off += 6 + (2 * D + 1 if k == "s" else D)
+        off += 6 + {"s": 2 * D + 1, "a": 0}.get(k, D)
     return out, off
 
 
@@ -830,10 +937,11 @@ def _first_rank_ref(scn, lp, sv, limit):
 
 
 def _shade_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
-               kinds, specular):
+               kinds, specular, area=None):
     """apply_lights (ndt.c:71-326) as the fused shade kernel computes it
-    (pallas_trace L984-1074).  Returns the local colour (3 [R] tensors)
-    and the terms the chain bounce reuses."""
+    (pallas_trace L984-1074).  ``area`` [n_area, R, D]: the sampled
+    position of each 'a' light per ray, in light order.  Returns the local
+    colour (3 [R] tensors) and the terms the chain bounce reuses."""
     R, D = o.shape
     oc = [o[:, d] for d in range(D)]
     vc = [v[:, d] for d in range(D)]
@@ -848,6 +956,7 @@ def _shade_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
     vdotn = dot(vc, n1)
     rv_dot_n = -t * vdotn                       # rev_view . n (ndt.c:160)
     out = [wc[j] * lvec[j] for j in range(3)]   # ambient (ndt.c:89-111)
+    a_i = 0
     for li, (kind, o_col, o_spec, o_geo) in enumerate(light_fields(kinds,
                                                                    D)[0]):
         lcol = [lvec[o_col + j] for j in range(3)]
@@ -864,10 +973,16 @@ def _shade_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
             lvu, ldist2 = u, 1.0
             rl_dot_n = -dot(u, n1)
         else:
-            # point / spot (ndt.c:209-228): from the LIGHT toward the
-            # surface; lit iff the closest hit within the limit is the
-            # same object within EPSILON of the shaded point
-            lp = [lvec[o_geo + d] for d in range(D)]
+            # point / spot / area (ndt.c:209-228): from the LIGHT toward
+            # the surface; lit iff the closest hit within the limit is the
+            # same object within EPSILON of the shaded point.  An area
+            # light is a point light at the ray's sampled position
+            # (ndt.c:143-147)
+            if kind == "a":
+                lp = [area[a_i][:, d] for d in range(D)]
+                a_i += 1
+            else:
+                lp = [lvec[o_geo + d] for d in range(D)]
             sd_ = [p[d] - lp[d] for d in range(D)]
             dist2 = dot(sd_, sd_)
             dist = sqrt(dist2)
@@ -912,29 +1027,30 @@ def _shade_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
 
 
 def shade_local_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
-                    kinds, specular):
+                    kinds, specular, area=None):
     """Plain twin of the shade kernel without carry: apply_lights' local
     colour [R, 3] (garbage on miss lanes, which callers mask)."""
     out = _shade_ref(scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
-                     specular)[0]
+                     specular, area)[0]
     return torch.stack(out, 1)
 
 
 def shade_carry_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec,
                     culls, kinds, specular, w, frac, color, live,
-                    escalate=False):
+                    escalate=False, area=None):
     """Plain twin of the shade kernel with carry: fused apply_lights, then
     the chain-mode bounce step (ndt.c:329-419), as
     pallas_trace._make_shade_kernel with carry.
 
     lvec: trace.fused_light_info's flat table; culls: per light (lists,
-    counts) over that light's shadow rays.  Returns (o' [R,D], v' [R,D],
-    w' [R,3], frac' [R], color' [R,3], nxt [R] bool); nxt leaves out the
-    max-depth condition, which the caller ANDs on.  ``escalate``
+    counts) over that light's shadow rays; area: see _shade_ref.  Returns
+    (o' [R,D], v' [R,D], w' [R,3], frac' [R], color' [R,3], nxt [R]
+    bool); nxt leaves out the max-depth condition, which the caller ANDs
+    on.  ``escalate``
     (L1112-1119): a live lane whose winner is transparent taints and
     freezes (nxt False); the return gains taint [R] bool."""
     out, hitm, p, vdotn, nn, wr, wt = _shade_ref(
-        scn, o, v, t, mat, nrm, props, lvec, culls, kinds, specular)
+        scn, o, v, t, mat, nrm, props, lvec, culls, kinds, specular, area)
     D = o.shape[1]
     hit = hitm & live
     contrib = torch.maximum(torch.maximum(wr[0], wr[1]), wr[2])
@@ -966,15 +1082,14 @@ def shade_carry_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec,
     return o2, v2, w2, f2, c2, nxt & ~taint, taint
 
 
-def _check_shade(scn, o, v, t, mat, nrm, props, lvec, culls, kinds):
+def _check_shade(scn, o, v, t, mat, nrm, props, lvec, culls, kinds, area):
     if not kinds:
         raise ValueError("shading needs at least one non-ambient light "
                          "(fused_light_info is None for a scene without)")
     bad = [k for k in kinds if k not in LIGHT_KINDS]
     if bad:
-        raise NotImplementedError(
-            f"fused light kinds {bad}: only directional, point and spot "
-            "lights are ported (area lights: ROADMAP Queue 2 row 3c)")
+        raise ValueError(f"unknown light kinds {bad} (known: "
+                         f"{LIGHT_KINDS!r})")
     if len(culls) != len(kinds):
         raise ValueError("one (lists, counts) cull per light")
     R, D = o.shape
@@ -986,14 +1101,23 @@ def _check_shade(scn, o, v, t, mat, nrm, props, lvec, culls, kinds):
     _check("nrm", nrm, (R, D), torch.float32, dev)
     _check("props", props, (R, N_PROPS), torch.float32, dev)
     _check("lvec", lvec, (light_fields(kinds, D)[1],), torch.float32, dev)
+    n_area = kinds.count("a")
+    if n_area:
+        if area is None:
+            raise ValueError("area lights shade at their sampled positions: "
+                             "pass area [n_area, R, D]")
+        _check("area", area, (n_area, R, D), torch.float32, dev)
+    elif area is not None:
+        raise ValueError("area positions given without an area light")
 
 
 def shade_carry(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
-                kinds, specular, w, frac, color, live, escalate=False):
+                kinds, specular, w, frac, color, live, escalate=False,
+                area=None):
     """Fused shading + chain bounce (see shade_carry_ref): the twin on the
     CPU, the ``shade`` CUDA kernel in carry (or escalate) mode on the
     card."""
-    _check_shade(scn, o, v, t, mat, nrm, props, lvec, culls, kinds)
+    _check_shade(scn, o, v, t, mat, nrm, props, lvec, culls, kinds, area)
     R = o.shape[0]
     dev = scn.device
     _check("w", w, (R, 3), torch.float32, dev)
@@ -1003,7 +1127,7 @@ def shade_carry(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
     if o.device.type == "cpu":
         return shade_carry_ref(scn, o, v, t, mat, nrm, props, lvec, culls,
                                kinds, specular, w, frac, color, live,
-                               escalate)
+                               escalate, area)
     fn = _entry(o, "ndt_shade", scn.dim)
     o2, v2 = torch.empty_like(o), torch.empty_like(v)
     w2, f2, c2 = (torch.empty_like(x) for x in (w, frac, color))
@@ -1011,26 +1135,26 @@ def shade_carry(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
     taint = torch.empty(R, dtype=torch.bool, device=dev)
     mode = _SHADE_ESCALATE if escalate else _SHADE_CARRY
     _launch_shade(fn, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
-                  specular, mode, (w, frac, color, live, o2, v2, w2, f2, c2,
-                                   nxt, taint, None))
+                  area, specular, mode, (w, frac, color, live, o2, v2, w2,
+                                         f2, c2, nxt, taint, None))
     _count_shade(scn, "shade_escalate" if escalate else "shade_carry", kinds)
     out = (o2, v2, w2, f2, c2, nxt)
     return out + (taint,) if escalate else out
 
 
 def shade_local(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
-                kinds, specular):
+                kinds, specular, area=None):
     """The local colour [R, 3] (see shade_local_ref): the twin on the CPU,
     the ``shade`` CUDA kernel in local mode on the card."""
-    _check_shade(scn, o, v, t, mat, nrm, props, lvec, culls, kinds)
+    _check_shade(scn, o, v, t, mat, nrm, props, lvec, culls, kinds, area)
     if o.device.type == "cpu":
         return shade_local_ref(scn, o, v, t, mat, nrm, props, lvec, culls,
-                               kinds, specular)
+                               kinds, specular, area)
     fn = _entry(o, "ndt_shade", scn.dim)
     local = torch.empty((o.shape[0], 3), dtype=torch.float32,
                         device=o.device)
     _launch_shade(fn, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
-                  specular, _SHADE_LOCAL, (None,) * 11 + (local,))
+                  area, specular, _SHADE_LOCAL, (None,) * 11 + (local,))
     _count_shade(scn, "shade_local", kinds)
     return local
 
@@ -1041,6 +1165,8 @@ def _count_shade(scn, mode_name, kinds):
         launch_counts["shade_point"] += 1
     if "s" in kinds:
         launch_counts["shade_spot"] += 1
+    if "a" in kinds:
+        launch_counts["shade_area"] += 1
     if has_facets(scn):
         launch_counts["shade_facets"] += 1
 
@@ -1050,7 +1176,7 @@ _SHADE_CARRY, _SHADE_ESCALATE, _SHADE_LOCAL = 0, 1, 2
 
 
 def _launch_shade(fn, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
-                  specular, mode, io):
+                  area, specular, mode, io):
     """io: (w, frac, color, live, o', v', w', frac', color', nxt, taint,
     local), None where the mode has no such array."""
     R = o.shape[0]
@@ -1059,7 +1185,7 @@ def _launch_shade(fn, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
     tables = _c_tables(scn)
     err = fn(
         ctypes.addressof(tables), _p(o), _p(v), _p(t), _p(mat), _p(nrm),
-        _p(props), _p(lvec), "".join(kinds).encode(), len(kinds),
+        _p(props), _p(lvec), "".join(kinds).encode(), len(kinds), _p(area),
         _p(lists), _p(counts), lists.shape[2], int(bool(specular)),
         int(SPECULAR_POWER), mode, *(_p(x) for x in io), R, _stream())
     _raise_on(err, "shade")

@@ -577,9 +577,8 @@ _BUILDERS = {
 def compile_lights(scene: Scene, dt):
     out = []
     for lgt in scene.lights:
-        if lgt.type in (LightType.DISK, LightType.RECT):
-            raise NotImplementedError(
-                "area lights are not ported yet (ROADMAP Queue 1 item 10)")
+        if lgt.type in (LightType.DISK, LightType.RECT) and not lgt.prepared:
+            lgt.prepare()       # scene_prepare_light: orthonormal u1 / v1
         out.append(LightData(
             kind=int(lgt.type), pos=lgt.pos.astype(dt),
             dir=lgt.dir.astype(dt), color=lgt.color.astype(dt),
@@ -628,11 +627,7 @@ def compile_scene(scene: Scene, dtype=np.float32) -> SceneData:
 def scene_from_numpy(sd) -> SceneData:
     """The port's SceneData from any object with the JAX ``SceneData``
     fields as numpy arrays (duck-typed: nothing of the JAX package is
-    imported).  Area lights raise, as in compile_lights."""
-    if any(int(lgt.kind) in (LightType.DISK, LightType.RECT)
-           for lgt in sd.lights):
-        raise NotImplementedError(
-            "area lights are not ported yet (ROADMAP Queue 1 item 10)")
+    imported)."""
     blocks = {}
     for field, cls in _BLOCK_TYPES.items():
         blk = getattr(sd, field)

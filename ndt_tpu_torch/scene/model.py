@@ -16,6 +16,7 @@ from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 
+from ndt_tpu_torch import mathnd
 from ndt_tpu_torch.camera import Camera
 from ndt_tpu_torch.constants import EPSILON
 
@@ -220,14 +221,37 @@ class Light:
         self.name = name
         self.pos = np.zeros(dim, dtype=np.float64)
         self.dir = np.zeros(dim, dtype=np.float64)
+        self.u = np.zeros(dim, dtype=np.float64)
+        self.v = np.zeros(dim, dtype=np.float64)
         self.u1 = np.zeros(dim, dtype=np.float64)
         self.v1 = np.zeros(dim, dtype=np.float64)
         self.radius = 0.0
         self.color = np.zeros(3, dtype=np.float64)
         self.angle = 0.0  # spot cone half-angle, degrees (ndt.c:204)
+        self.prepared = False
 
     def set_color(self, r, g, b):
         self.color = np.array([r, g, b], dtype=np.float64)
+        return self
+
+    def aim(self, target):
+        """scene_aim_light (scene.c:149-180): build the u/v area-light basis
+        from the aim direction."""
+        target = np.asarray(target, dtype=np.float64)
+        aim_dir = mathnd.unitize(target - self.pos)
+        temp = aim_dir.copy()
+        temp[0] = 1.0 if abs(aim_dir[0]) < EPSILON else -aim_dir[0]
+        self.u, _ = mathnd.orthogonalize(temp, aim_dir)
+        temp = aim_dir.copy()
+        temp[1] = 1.0 if abs(aim_dir[1]) < EPSILON else -aim_dir[1]
+        self.v, _ = mathnd.orthogonalize(temp, aim_dir)
+        return self
+
+    def prepare(self):
+        """scene_prepare_light (scene.c:182-195): orthonormal u1/v1."""
+        if self.type in (LightType.DISK, LightType.RECT):
+            self.u1, self.v1 = mathnd.orthogonalize(self.u, self.v)
+        self.prepared = True
         return self
 
 

@@ -5,8 +5,8 @@
     scene_cleanup() -> None                           (optional)
 
 where ``scn`` is an ``ndt_tpu_torch.scene.Scene``.  Ported so far:
-``balls``, ``anim6d``, ``lights3d``, ``random`` and the built-in
-``test`` scene (also ``builtin``); the other scenes of the JAX package
+``balls``, ``anim6d``, ``lights3d``, ``infinite4d``, ``random`` and the
+built-in ``test`` scene (also ``builtin``); the other scenes of the JAX package
 follow with the families they need (ROADMAP).
 """
 
@@ -21,6 +21,7 @@ _SCENES = {
     "anim6d": "ndt_tpu_torch.scenes.anim6d",
     "balls": "ndt_tpu_torch.scenes.balls",
     "lights3d": "ndt_tpu_torch.scenes.lights3d",
+    "infinite4d": "ndt_tpu_torch.scenes.infinite4d",
     "random": "ndt_tpu_torch.scenes.random_scene",
 }
 

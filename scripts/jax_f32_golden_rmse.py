@@ -10,7 +10,8 @@ Renders, through ndt_tpu.render.engine.render_frame on the CPU in float32
   * the built-in test scene 4-D 640x480 frame 0, the full frame;
   * the built-in test scene 3-D 320x240 frame 0, the full frame;
   * random "20" 5-D 320x240 frame 0, rows 60:80 (the band of
-    tests/test_goldens_extended.py).
+    tests/test_goldens_extended.py);
+  * infinite4d 4-D 240x180 frame 0, the full frame.
 Prints one line per frame and a JSON line of the values.
 """
 
@@ -46,7 +47,9 @@ def main():
             ("test_3d_full", "test", 3, 320, 240, slice(0, 240), None,
              "test_3d_320x240_f0.png"),
             ("random_5d_rows60_80", "random", 5, 320, 240, slice(60, 80),
-             "20", "random_5d_320x240_f0.png")):
+             "20", "random_5d_320x240_f0.png"),
+            ("infinite4d_full", "infinite4d", 4, 240, 180, slice(0, 180),
+             None, "infinite4d_4d_240x180_f0.png")):
         t0 = time.perf_counter()
         scn = Scene(name, dim)
         get_scene(name).scene_setup(scn, dim, 0, 1, config)

@@ -469,3 +469,177 @@ def assert_card_shade_variants(scn, o, v, live, kinds, facets=False):
               "shade_facets": 3 * facets}
     for k, n in expect.items():
         assert launch_counts[k] == before[k] + n, k
+
+
+# --------------------------------------------------------------------------
+# small hand-built scenes of tests/test_render.py, built with the JAX
+# package's model or with the port's (``port``: no JAX)
+
+
+def _model(port):
+    if port:
+        from ndt_tpu_torch.scene.model import LightType, Scene
+    else:
+        from ndt_tpu.scene.model import LightType, Scene
+    return LightType, Scene
+
+
+def small_scene(port=False, ambient_only=False):
+    """tests/test_render.py's _small_scene: a reflective sphere over a
+    floor, one point light.  ``ambient_only``: an ambient light in its
+    place (every light ambient: the unfused branch)."""
+    LightType, Scene = _model(port)
+    scn = Scene("mini", 4)
+    s = scn.add_object("sphere", "ball")
+    s.add_pos(np.array([0, 0, 10.0, 0])).add_size(2.0)
+    s.set_color(0.9, 0.2, 0.2).set_reflect(0.3, 0.3, 0.3)
+    floor = scn.add_object("hplane", "floor")
+    floor.add_pos(np.array([0, -3.0, 0, 0])).add_dir(np.array([0, 1.0, 0, 0]))
+    floor.set_color(0.5, 0.5, 0.5)
+    scn.ambient[:] = 0.3
+    lgt = scn.add_light(LightType.AMBIENT if ambient_only
+                        else LightType.POINT)
+    lgt.pos = np.array([5.0, 10.0, 0, 0])
+    if ambient_only:
+        lgt.set_color(0.2, 0.1, 0.1)
+    else:
+        lgt.set_color(50, 50, 50)
+    scn.cam.set_aim(np.array([0, 2.0, -8.0, 0]), np.array([0, 0, 10.0, 0]),
+                    np.array([0, 1.0, 0, 0]))
+    scn.bg[:] = [0.1, 0.2, 0.3]
+    return scn
+
+
+def area_light_scene(kind, port=False):
+    """tests/test_render.py's _area_light_scene: a sphere blocking a DISK
+    or RECT light (``kind``: the name) over a floor."""
+    LightType, Scene = _model(port)
+    scn = Scene("area", 4)
+    s = scn.add_object("sphere", "blocker")
+    s.add_pos(np.array([0, 3.0, 10.0, 0])).add_size(1.5)
+    s.set_color(0.8, 0.2, 0.2)
+    floor = scn.add_object("hplane", "floor")
+    floor.add_pos(np.array([0, 0.0, 0, 0])).add_dir(np.array([0, 1.0, 0, 0]))
+    floor.set_color(0.7, 0.7, 0.7)
+    lgt = scn.add_light(LightType[kind])
+    lgt.pos = np.array([0.0, 12.0, 10.0, 0.0])
+    lgt.radius = 3.0
+    lgt.set_color(120, 120, 120)
+    lgt.aim(np.array([0.0, 0.0, 10.0, 0.0]))   # scene_aim_light
+    lgt.prepare()
+    scn.cam.set_aim(np.array([0, 6.0, -6.0, 0]), np.array([0, 0, 10.0, 0]),
+                    np.array([0, 1.0, 0, 0]))
+    scn.ambient[:] = 0.1
+    return scn
+
+
+def two_light_scene(port=False, reflect=0.0):
+    """The area scene with its DISK light and a RECT light beside it (one
+    shadow trace stacks both); ``reflect``: the floor's reflectivity (0:
+    nothing reflects, every ray ends at its first hit)."""
+    scn = area_light_scene("DISK", port)
+    if reflect:
+        scn.objects[1].set_reflect(reflect, reflect, reflect)
+    rect = area_light_scene("RECT", port).lights[0]
+    rect.pos = np.array([6.0, 10.0, 8.0, 1.0])
+    rect.aim(np.array([0.0, 0.0, 10.0, 0.0]))
+    rect.prepare()
+    scn.lights.append(rect)
+    return scn
+
+
+def penumbra(img):
+    """tests/test_render.py's soft-shadow check of the area scene at 48x36
+    (rows 16:30 of the grey floor): (lit, dark, penumbra pixels); the
+    check wants lit > 2.5 dark + 1e-3 and >= 3 penumbra pixels."""
+    lum = img.mean(-1)
+    floor = (np.abs(img[..., 0] - img[..., 1]) < 0.05)[16:30]
+    vals = lum[16:30][floor]
+    lit, dark = vals.max(), vals.min()
+    mid = ((vals > dark + 0.25 * (lit - dark))
+           & (vals < dark + 0.75 * (lit - dark)))
+    return float(lit), float(dark), int(mid.sum())
+
+
+# --------------------------------------------------------------------------
+# frames through the engines' unfused branches
+
+
+def frame_rays(scn_host, w, h):
+    """The JAX engine's rays of a w x h grid (tests/test_render.py's
+    _render_impls), f32 numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    from ndt_tpu.render.engine import RenderOptions, gen_rays
+
+    cd = scn_host.cam.data(np.float32)
+    xs = np.linspace(-0.5, 0.5, w, dtype=np.float32)
+    ys = np.linspace(-0.5, 0.5, h, dtype=np.float32)
+    xg, yg = np.meshgrid(xs, ys)
+    o, v = gen_rays(cd, jnp.asarray(xg.ravel()), jnp.asarray(yg.ravel()),
+                    jax.random.PRNGKey(0), RenderOptions(width=w, height=h),
+                    "center", False, False)
+    return np.asarray(o, np.float32), np.asarray(v, np.float32)
+
+
+def jax_unfused(jscn, o, v, w, h):
+    """The JAX engine's render_rays of (o, v) on its unfused branch
+    (engine._FUSED_SHADOW = False) through the interpret-mode kernels,
+    key PRNGKey(0), no compaction."""
+    import jax
+
+    from ndt_tpu.render import engine
+    from ndt_tpu.scene.compile import compile_scene
+
+    jsd = compile_scene(jscn, np.float32)
+    opts = engine.RenderOptions(width=w, height=h, samples=1, tile=w * h,
+                                compact=0)
+    old = engine._FUSED_SHADOW
+    engine._FUSED_SHADOW = False
+    try:
+        c = engine.render_rays(jsd, j32(o), j32(v), jax.random.PRNGKey(0),
+                               opts)[0]
+    finally:
+        engine._FUSED_SHADOW = old
+    return np.asarray(c), jsd
+
+
+def port_frames(scn, o, v, w, h, seed=0, branches=(True, False)):
+    """The port's render_rays_chunked of (o, v) on the fused (True) and
+    the unfused (False) branch: {branch: colour}."""
+    from ndt_tpu_torch.render import engine
+
+    opts = engine.RenderOptions(width=w, height=h, seed=seed)
+    out = {}
+    old = engine._FUSED_SHADOW
+    try:
+        for fused in branches:
+            engine._FUSED_SHADOW = fused
+            out[fused] = engine.render_rays_chunked(scn, t(o), t(v),
+                                                    opts)[0].numpy()
+    finally:
+        engine._FUSED_SHADOW = old
+    return out
+
+
+def assert_frame_bar(a, b):
+    """The f32 frame bar: fewer than 0.2% of pixels off by > 1e-3."""
+    d = np.abs(a - b).max(-1)
+    assert (d > 1e-3).mean() < 0.002, d.max()
+
+
+def jax_apply_lights(jsd, o, v, tr, key=None):
+    """The JAX package's apply_lights, jitted, on the port's Hit ``tr``
+    (as a TraceResult; its hit lanes active)."""
+    import jax
+
+    from ndt_tpu.render.shade import apply_lights
+    from ndt_tpu.render.trace import TraceResult
+
+    jt = TraceResult(t=j32(tr.t), hit=j32(tr.hit), mat_id=j32(tr.mat),
+                     point=j32(tr.point), normal=j32(tr.normal),
+                     color=j32(tr.color), reflect=j32(tr.reflect),
+                     transparent=j32(tr.transparent), ior=j32(tr.ior))
+    return np.asarray(jax.jit(apply_lights)(jsd, j32(o), j32(v), jt, jt.hit,
+                                            key))

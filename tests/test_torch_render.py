@@ -87,20 +87,45 @@ def test_balls_band_matches_c_golden():
 
 def test_port_renders_without_jax():
     """A fresh interpreter imports the port, sets up balls, anim6d, the
-    built-in test scene and random "20", renders each at 16x12 on the CPU,
-    and has loaded no module of the JAX package (``ndt_tpu`` or
-    ``ndt_tpu.*``), nor jax or flax."""
+    built-in test scene, random "20", infinite4d and a DISK + RECT area
+    scene, renders each at 16x12 on the CPU (infinite4d and the area
+    scene on the fused and the unfused branch), and has loaded no module
+    of the JAX package (``ndt_tpu`` or ``ndt_tpu.*``), nor jax or
+    flax."""
     code = (
         "import sys, numpy as np\n"
         "from ndt_tpu_torch.scene import Scene\n"
+        "from ndt_tpu_torch.scene.model import LightType\n"
         "from ndt_tpu_torch.scenes import get_scene\n"
+        "from ndt_tpu_torch.render import engine\n"
         "from ndt_tpu_torch.render.engine import RenderOptions, "
         "render_frame\n"
-        "for name, dim, frame, frames, cfg in (('balls', 4, 0, 1500, None), "
-        "('anim6d', 6, 1, 4, None), ('test', 4, 0, 1, None), "
-        "('random', 5, 0, 1, '20')):\n"
-        "    scn = Scene(name, dim)\n"
-        "    get_scene(name).scene_setup(scn, dim, frame, frames, cfg)\n"
+        "def area():\n"
+        "    scn = Scene('area', 4)\n"
+        "    scn.add_object('sphere').add_pos(np.array([0, 3., 10, 0]))"
+        ".add_size(1.5)\n"
+        "    scn.add_object('hplane').add_pos(np.zeros(4)).add_dir("
+        "np.array([0, 1., 0, 0]))\n"
+        "    for kind, x in ((LightType.DISK, 0.), (LightType.RECT, 6.)):\n"
+        "        lgt = scn.add_light(kind)\n"
+        "        lgt.pos, lgt.radius = np.array([x, 12., 10, 0]), 3.0\n"
+        "        lgt.set_color(60, 60, 60).aim(np.array([0, 0, 10., 0]))\n"
+        "    scn.cam.set_aim(np.array([0, 6., -6, 0]), np.array([0, 0, 10., "
+        "0]), np.array([0, 1., 0, 0]))\n"
+        "    return scn\n"
+        "for name, dim, frame, frames, cfg, fused in ("
+        "('balls', 4, 0, 1500, None, True), "
+        "('anim6d', 6, 1, 4, None, True), ('test', 4, 0, 1, None, True), "
+        "('random', 5, 0, 1, '20', True), "
+        "('infinite4d', 4, 0, 1, None, True), "
+        "('infinite4d', 4, 0, 1, None, False), "
+        "('area', 4, 0, 1, None, True), ('area', 4, 0, 1, None, False)):\n"
+        "    engine._FUSED_SHADOW = fused\n"
+        "    if name == 'area':\n"
+        "        scn = area()\n"
+        "    else:\n"
+        "        scn = Scene(name, dim)\n"
+        "        get_scene(name).scene_setup(scn, dim, frame, frames, cfg)\n"
         "    img, _, rays = render_frame(scn, RenderOptions(width=16, "
         "height=12), device='cpu')\n"
         "    assert img.shape == (12, 16, 3) and np.isfinite(img).all()\n"

@@ -112,19 +112,28 @@ def test_scene_from_numpy_round_trips():
 
 
 def test_scene_from_numpy_refuses_unported_families():
-    """Every intersection family is ported (facets and hfacets carry
-    over); area lights are not and raise."""
-    from types import SimpleNamespace
-
+    """Every intersection family and light kind is ported: facets and
+    hfacets carry over, and so do DISK / RECT area lights with their
+    radius and u1 / v1 basis."""
     from ndt_tpu.scene.compile import compile_scene as jax_compile
     from ndt_tpu_torch.scene import scene_from_numpy
     from ndt_tpu_torch.scene.model import LightType
 
+    from _torch_common import area_light_scene
+
     jsd = jax_compile(jax_scene("test", 4), np.float32)
     assert scene_from_numpy(jsd).facets is not None
-    area = SimpleNamespace(kind=int(LightType.DISK))
-    with pytest.raises(NotImplementedError, match="area lights"):
-        scene_from_numpy(SimpleNamespace(lights=(area,)))
+    for kind in ("DISK", "RECT"):
+        jscn = area_light_scene(kind)
+        jscn.cam.aim()
+        jsd = jax_compile(jscn, np.float32)
+        (lgt,) = scene_from_numpy(jsd).lights
+        assert lgt.kind == int(LightType[kind])
+        for f in ("pos", "u1", "v1", "radius"):
+            np.testing.assert_array_equal(getattr(lgt, f),
+                                          np.asarray(getattr(jsd.lights[0],
+                                                             f)))
+        assert np.abs(lgt.u1).max() > 0
 
 
 @pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-12),

@@ -124,16 +124,21 @@ def test_shade_carry_ref_seeded_scene(dim):
 
 
 def test_shade_carry_refuses_unported_light_kinds(primary_hits):
-    """Area lights ('a': per-ray sampled positions) are not ported."""
-    from ndt_tpu_torch.render.kernels import shade_carry
+    """Every light kind of the reference is ported ('a' area lights since
+    they take their per-ray sampled positions): an unknown kind is
+    refused, and so is an area light without its positions."""
+    from ndt_tpu_torch.render.kernels import cull_lists, shade_carry
 
     _, scn, o, v, live, (tt, mat, nrm, props) = primary_hits
     R = o.shape[0]
-    args = (scn, t(o), t(v), t(tt), t(mat), t(nrm), t(props),
-            torch.zeros(6 + 6), ((None, None),), ("a",), True,
-            torch.ones((R, 3)), torch.ones(R), torch.zeros((R, 3)), t(live))
-    with pytest.raises(NotImplementedError):
-        shade_carry(*args)
+    cull = cull_lists(scn, t(o), t(v), live=t(live))
+    for kind in ("x", "a"):
+        args = (scn, t(o), t(v), t(tt), t(mat), t(nrm), t(props),
+                torch.zeros(6 + 6), (cull,), (kind,), True,
+                torch.ones((R, 3)), torch.ones(R), torch.zeros((R, 3)),
+                t(live))
+        with pytest.raises(ValueError):
+            shade_carry(*args)
 
 
 @pytest.mark.gpu

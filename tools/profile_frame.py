@@ -1,17 +1,26 @@
 #!/usr/bin/env python3
 """Where the time of one ndt_tpu_torch frame goes, on one CUDA card.
 
-    python3 tools/profile_frame.py [--scene balls|anim6d|test|random150]
-                                   [--width W --height H] [--trace PATH]
+    python3 tools/profile_frame.py [--scene balls|anim6d|test|random150|
+                                            infinite4d|area]
+                                   [--width W --height H] [--unfused]
+                                   [--trace PATH]
 
 Renders one of the port's frames through its render_frame on the card:
 the 4-D balls scene, frame 0 (1920x1080 by default); the 6-D anim6d scene,
 frame 1 (640x480: the refraction-stack path); the built-in test scene 4-D,
-frame 0 (640x480: facet, open hcylinder, glass, three point lights); or
+frame 0 (640x480: facet, open hcylinder, glass, three point lights);
 random "150" 5-D (640x480, the random150_5d bench config: 3891 leaves, the
-early exit).  Two warm-up frames (one for anim6d and test), three timed
-frames (host clock around torch.cuda.synchronize()), then one frame under
-torch.profiler (CPU + CUDA activities).  The profiled frame's functions
+early exit); infinite4d 4-D (240x180: three infinite leaves, a point and
+a directional light); or the area scene (640x480: a sphere over a
+reflective floor under a DISK and a RECT light, tests/_torch_common.py
+two_light_scene).
+``--unfused`` renders on the engine's unfused branch (trace, then
+apply_lights with its stacked shadow_trace / occlusion_trace launches:
+engine._FUSED_SHADOW = False, what NDT_FUSED_SHADOW=0 selects).  Two
+warm-up frames (one for anim6d and test), three timed frames (host clock
+around torch.cuda.synchronize()), then one frame under torch.profiler (CPU
++ CUDA activities).  The profiled frame's functions
 are wrapped in record_function spans by this script alone (the port has no
 profiling switch).  It prints:
 
@@ -22,8 +31,9 @@ profiling switch).  It prints:
     span, split by kind (the two CUDA kernels by name, copies by
     direction, the top other kernels by name);
   * host spans: calls and total ms of compile, upload, primary rays, the
-    escalation probe, the chain and stack loops, the fused steps,
-    cull_lists, the shadow culls and the kernel wrappers;
+    escalation probe, the chain and stack loops, the fused steps, the
+    unfused trace and apply_lights with its shadow traces, cull_lists,
+    the shadow culls and the kernel wrappers;
   * the count of kernel launches in the frame;
   * one JSON line of these numbers.
 
@@ -57,9 +67,15 @@ SPANS = {
     ("engine", "_probe_taint_frac"): "probe",
     ("engine", "_run_chain"): "chain loop",
     ("engine", "_run_stack"): "stack loop",
+    ("engine", "trace"): "trace",
+    ("engine", "apply_lights"): "apply_lights",
+    ("shade", "shadow_trace"): "shadow_trace",
+    ("shade", "occlusion_trace"): "occlusion_trace",
     ("trace", "cull_lists"): "cull_lists",
     ("trace", "_shadow_culls"): "_shadow_culls",
     ("trace", "trace_closest"): "trace_closest",
+    ("trace", "trace_any"): "trace_any",
+    ("trace", "trace_shadow"): "trace_shadow",
     ("trace", "shade_carry"): "shade_carry",
     ("trace", "shade_local"): "shade_local",
 }
@@ -67,7 +83,9 @@ SPANS = {
 SCENES = {"balls": ("balls", 4, 0, 1500, None, 1920, 1080),
           "anim6d": ("anim6d", 6, 1, 4, None, 640, 480),
           "test": ("test", 4, 0, 1, None, 640, 480),
-          "random150": ("random", 5, 0, 1, "150", 640, 480)}
+          "random150": ("random", 5, 0, 1, "150", 640, 480),
+          "infinite4d": ("infinite4d", 4, 0, 1, None, 240, 180),
+          "area": ("area", 4, 0, 1, None, 640, 480)}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -75,6 +93,13 @@ def make_scene(name):
     from ndt_tpu_torch.scene import Scene
     from ndt_tpu_torch.scenes import get_scene
 
+    if name == "area":
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from _torch_common import two_light_scene
+
+        scn = two_light_scene(port=True, reflect=0.3)
+        scn.cam.aim()
+        return scn
     key, dim, frame, frames, config = SCENES[name][:5]
     mod = get_scene(key)
     scn = Scene(key, dim)
@@ -135,9 +160,9 @@ def device_kind(ev):
             if tag in name:
                 return kind
         return ev["cat"]
-    for kern in ("trace_closest_kernel", "shade_kernel"):
-        if kern in name:
-            return kern
+    for kern in ("trace_kernel", "shade_kernel"):
+        if kern in name:     # with its <D, A(, mode)> instance
+            return name[name.index(kern):].split("(")[0]
     return "torch: " + name.split("<")[0].split("(")[0][:60]
 
 
@@ -187,12 +212,12 @@ def profile_frame(scn, opts, trace_path=None):
     functions wrapped in spans: analyse()'s numbers."""
     import torch
 
-    from ndt_tpu_torch.render import engine, trace
+    from ndt_tpu_torch.render import engine, shade, trace
     from ndt_tpu_torch.render.engine import render_frame
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with wrap_spans({"engine": engine, "trace": trace}):
+    with wrap_spans({"engine": engine, "trace": trace, "shade": shade}):
         with torch.profiler.profile(activities=acts) as prof:
             with torch.profiler.record_function("frame"):
                 render_frame(scn, opts, device="cuda")
@@ -209,6 +234,8 @@ def main():
     ap.add_argument("--scene", choices=sorted(SCENES), default="balls")
     ap.add_argument("--width", type=int)
     ap.add_argument("--height", type=int)
+    ap.add_argument("--unfused", action="store_true",
+                    help="the engine's unfused branch (trace, apply_lights)")
     ap.add_argument("--trace", help="keep the chrome trace at this path")
     args = ap.parse_args()
 
@@ -219,8 +246,10 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from ndt_tpu_torch.kernels import build
+    from ndt_tpu_torch.render import engine
     from ndt_tpu_torch.render.engine import RenderOptions, render_frame
 
+    engine._FUSED_SHADOW = not args.unfused
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -240,7 +269,9 @@ def main():
         _, _, rays = render_frame(scn, opts, device="cuda")
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    print(f"[frame] {args.scene} {W}x{H} on {card}: unprofiled s/frame "
+    branch = "unfused" if args.unfused else "fused"
+    print(f"[frame] {args.scene} {W}x{H} ({branch}) on {card}: unprofiled "
+          f"s/frame "
           f"{', '.join(f'{t:.4f}' for t in times)}; {rays} rays/frame")
 
     res = profile_frame(scn, opts, args.trace)
@@ -259,7 +290,8 @@ def main():
                        key=lambda kv: -kv[1]["ms"]):
         print(f"  {d['ms']:10.3f} ms {d['calls']:6d}  {k}")
     print(json.dumps(dict(card=card, scene=args.scene, width=W, height=H,
-                          rays=rays, unprofiled_s=times, **res)))
+                          branch=branch, rays=rays, unprofiled_s=times,
+                          **res)))
     return 0
 
 
