@@ -1,16 +1,28 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (ndt_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline TREE ...]
+
+--baseline TREE (repeatable): another checkout, e.g. a git archive of the
+parent commit, whose csrc/shade.cu is built too and timed beside this
+one's on every timed shade batch, in turns (baseline, this, this,
+baseline).
 
 Phases (each prints its own lines and its seconds; any failure exits
 nonzero with no "ok" line):
   1. the card (nvidia-smi name and power limit), torch, nvcc;
   2. the nvcc build of the kernels (one nvcc per source and dimension, in
-     parallel);
+     parallel), and each shade_kernel instance's registers, spills,
+     shared memory and resident blocks per SM (from ptxas' report);
   3. each CUDA kernel variant against its plain PyTorch twin on the card,
      at the shapes its path gives it, then its time (CUDA events), the
-     twin's, and the least time the card could take (bound_ms):
+     twin's, and the least time the card could take (bound_ms).  Every
+     shade variant also equals its twin to the bit, every output on every
+     lane; a shade row's ms is the wrapper's call (which also stacks the
+     lights' culls), its kernel_ms the kernel launch alone, printed with
+     the share of (lane, light) pairs whose walk is read.
+     shade_point and shade_facets are also checked and timed on the first
+     bounce and on one 4096-ray tile (the primary batch's densest):
        - trace_closest, shade_carry ('d' light): one 2^20-ray batch of
          1080p balls 4-D primary rays, then their first bounce;
        - trace_gated (orthotope slab, kd gate, A = 2), shade_escalate,
@@ -68,7 +80,10 @@ nonzero with no "ok" line):
      phase's frame its warm-up) and random "150" (trace_shadow with the
      capped early exit); and the area scene 640x480 on the fused branch
      (shade_area): s/frame, rays/frame, Mrays/s, the probe's taint share,
-     the tainted lanes and the stack iterations; then one more frame of
+     the tainted lanes and the stack iterations; for anim6d and test 4-D
+     also the shade launches by size R, and the first one-tile launch of
+     the stack loop's tail re-run against its twin and timed; then one
+     more frame of
      test 4-D and random150 (fused) and of the three new paths under
      torch.profiler (tools/profile_frame.py): the device's busy share.
 The second-to-last line is the per-kernel JSON summary; the last line is
@@ -80,15 +95,20 @@ operations it does on these inputs over 67 TFLOP/s (the H100 SXM's
 published peaks at 700 W).  Operations are counted from the kernel
 sources per candidate solve (an FMA counts 2), over the candidates this
 run's cull lists hold, for a directional shadow only up to the first hit,
-where the kernel stops, and with the early exit only the candidates whose
-reach is within the lane's final t (those every walk must solve).
+where the kernel stops, with the early exit only the candidates whose
+reach is within the lane's final t (those every walk must solve), and in
+the shade kernel only for the (lane, light) pairs whose walk is read
+(kernels.shade_walks_needed).
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -346,14 +366,17 @@ def _fam_ops(sd):
     return [ops[k] for k in ("sph", "pln", "quad", "fct", "hf")]
 
 
-def walk_ops(sd, lists, counts):
-    """Operations of a full walk of every tile's list, summed over all the
-    tile's RT rays (the kernel runs every lane of a listed tile)."""
+def walk_ops(sd, lists, counts, lanes=None):
+    """Operations of a full walk of every tile's list, summed over the
+    tile's lanes: all RT of them (the trace kernel runs every lane of a
+    listed tile), or those of ``lanes`` [R] bool (the shade kernel's
+    pairs that need the walk)."""
     from ndt_tpu_torch.render.kernels import RT
 
     c = counts.double()
-    return float(RT * sum(c[:, col] * op
-                          for col, op in enumerate(_fam_ops(sd))).sum())
+    n = RT if lanes is None else lanes.reshape(-1, RT).double().sum(1)
+    return float((n * sum(c[:, col] * op
+                          for col, op in enumerate(_fam_ops(sd)))).sum())
 
 
 def exit_walk_ops(sd, counts, reach, t, live):
@@ -377,10 +400,11 @@ def exit_walk_ops(sd, counts, reach, t, live):
     return total
 
 
-def anyhit_ops(sd, lists, counts, so, sv):
-    """Operations of the directional shadow walks, each ray's up to its
-    first hit (the kernel's any-hit stop): per ray the cumulative solve
-    cost at the first hitting candidate, or the whole list."""
+def anyhit_ops(sd, lists, counts, so, sv, lanes):
+    """Operations of the directional shadow walks of the ``lanes`` [R]
+    bool that need one, each up to its first hit (the kernel's any-hit
+    stop): per ray the cumulative solve cost at the first hitting
+    candidate, or the whole list."""
     import torch
 
     from ndt_tpu_torch.constants import BIG
@@ -412,19 +436,23 @@ def anyhit_ops(sd, lists, counts, so, sv):
         hit = torch.cat(hits, -1)
         first = torch.where(hit.any(-1), hit.double().argmax(-1),
                             cum.shape[-1] - 1)
-        total += float(cum.gather(-1, first[..., None]).sum())
+        need = lanes[r0:r1].reshape(nt, K.RT)
+        total += float(cum.gather(-1, first[..., None])[..., 0][need].sum())
     return total
 
 
-def shade_ops(sd, kinds, culls, o, v, t, lvec, mode):
-    """Operations of one shade launch: per-light shadow walks (full for
-    'p' / 's' after the first-rank pass, to the first hit for 'd') plus
-    the per-ray shading, specular and, with carry, the bounce step."""
+def shade_ops(sd, kinds, culls, o, v, t, lvec, mode, need):
+    """Operations of one shade launch: the shadow walks of the (ray,
+    light) pairs that need one (``need`` [n_lights, R] bool,
+    kernels.shade_walks_needed): the first-rank pass and the full list
+    for 'p' / 's' / 'a', the list to the first hit for 'd'; plus the
+    per-ray shading, specular and, with carry, the bounce step."""
     from ndt_tpu_torch.constants import EPSILON
-    from ndt_tpu_torch.render.kernels import fma, light_fields
+    from ndt_tpu_torch.render.kernels import _gid_family, fma, light_fields
 
     R, D = o.shape
     ops = solve_ops(sd)
+    rank_pass = sum(ops[_gid_family(sd, g)[0]] for g, _ in sd.inf_gids)
     per_ray = 2 * (2 * D - 1) + 4
     walks = 0.0
     for li, (kind, _, _, geo) in enumerate(light_fields(kinds, D)[0]):
@@ -435,11 +463,12 @@ def shade_ops(sd, kinds, culls, o, v, t, lvec, mode):
             p = [fma(t, v[:, d], o[:, d]) for d in range(D)]
             so = [fma(-u[d], EPSILON, p[d]) for d in range(D)]
             sv = [0.0 - u[d] for d in range(D)]
-            walks += anyhit_ops(sd, lists, counts, so, sv)
+            walks += anyhit_ops(sd, lists, counts, so, sv, need[li])
             per_ray += 2 * D
         else:
-            walks += walk_ops(sd, lists, counts)
-            per_ray += 9 * D + len(sd.inf_gids) * max(ops.values())
+            walks += (walk_ops(sd, lists, counts, need[li])
+                      + float(need[li].sum()) * rank_pass)
+            per_ray += 9 * D
             if kind == "s":
                 per_ray += 2 * D
     if mode != "local":
@@ -462,6 +491,121 @@ def table_bytes(sd):
                       sd.qoff, sd.qslab, sd.qgi, sd.qgt, sd.qgp, sd.fct,
                       sd.fgt, sd.fgp, sd.hf, sd.hgt, sd.hgp, sd.mat,
                       sd.rank, sd.inf, sd.props)
+
+
+# --------------------------------------------------------------------------
+# the shade kernel's registers, and another checkout's shade kernel
+
+
+def kernel_instances(lines, kernel):
+    """{template arguments: (registers, spill stores, spill loads, static
+    shared memory bytes)} of each instance of ``kernel`` in ptxas' report
+    lines (the second value kernels/build.py build returns)."""
+    out, cur = {}, None
+    for line in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(kernel + r"I((?:L[a-z]-?\d+E)+)E", m.group(1))
+            cur = (tuple(int(x) for x in re.findall(r"L[a-z](-?\d+)E",
+                                                    k.group(1)))
+                   if k else None)
+            if cur is not None:
+                out[cur] = [0, 0, 0, 0]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur][1:3] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[cur][0] = int(m.group(1))
+            out[cur][3] = int(smem.group(1)) if smem else 0
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def blocks_per_sm(regs, smem, threads=128):
+    """Resident blocks per H100 SM, worked out from a kernel's registers
+    (allocated per warp in units of 256 of the SM's 65536) and static
+    shared memory (228 KB per SM, 1 KB reserved per block), within 64
+    warps and 32 blocks per SM."""
+    warps = threads // 32
+    warp_regs = -(-max(regs, 1) * 32 // 256) * 256
+    by_regs = (65536 // warp_regs) // warps
+    by_smem = 233472 // (smem + 1024)
+    return min(by_regs, by_smem, 64 // warps, 32)
+
+
+def print_registers(lines, who):
+    for args, (regs, st, ld, smem) in sorted(
+            kernel_instances(lines, "shade_kernel").items()):
+        print(f"[build] {who} shade_kernel<{', '.join(map(str, args))}>: "
+              f"{regs} registers, spill stores {st} B, spill loads {ld} B, "
+              f"{smem} B static shared memory; {blocks_per_sm(regs, smem)} "
+              f"resident 128-thread blocks per SM (worked out from the "
+              f"registers and shared memory)")
+
+
+# the dimensions of the shade rows timed against a baseline
+BASELINE_DIMS = (3, 4, 6)
+
+
+class Baseline:
+    """Another checkout's shade kernel (``tree``/ndt_tpu_torch/csrc/
+    shade.cu, built as kernels/build.py builds this one's, one nvcc per D
+    of BASELINE_DIMS, started at once), timed beside this one's in one
+    call."""
+
+    def __init__(self, tree):
+        from ndt_tpu_torch.kernels import build
+
+        self.name = os.path.basename(os.path.normpath(tree))
+        src = os.path.join(tree, "ndt_tpu_torch", "csrc", "shade.cu")
+        self.out = os.path.join(tree, "_shade_build")
+        os.makedirs(self.out, exist_ok=True)
+        self.nvcc = build.find_nvcc()
+        self.objs = [os.path.join(self.out, f"shade.d{d}.o")
+                     for d in BASELINE_DIMS]
+        self.procs = [subprocess.Popen(
+            [self.nvcc, *build.NVCC_FLAGS, f"-DNDT_DIM={d}", "-c", src, "-o",
+             obj], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for d, obj in zip(BASELINE_DIMS, self.objs)]
+        self.lib = None
+
+    def load(self):
+        """Wait for the build, link, bind; print its registers."""
+        import ctypes
+
+        from ndt_tpu_torch.kernels import build
+
+        report = []
+        for proc in self.procs:
+            so, se = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"{self.name} shade.cu: nvcc failed:\n{se}")
+            report += (so + se).splitlines()
+        path = os.path.join(self.out, "libshade.so")
+        subprocess.run([self.nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-shared", "-o", path, *self.objs], check=True,
+                       capture_output=True)
+        self.lib = ctypes.CDLL(path)
+        for d in BASELINE_DIMS:
+            fn = getattr(self.lib, f"ndt_shade_d{d}")
+            fn.argtypes = build.SHADE_ARGTYPES
+            fn.restype = ctypes.c_int
+        print_registers(report, self.name)
+
+    @contextlib.contextmanager
+    def active(self, K):
+        """The shade wrappers launch this checkout's kernel in the block."""
+        orig = K._entry
+        K._entry = lambda x, name, dim: getattr(self.lib, f"{name}_d{dim}")
+        try:
+            yield
+        finally:
+            K._entry = orig
 
 
 # --------------------------------------------------------------------------
@@ -544,25 +688,195 @@ def trace_args(K, sd, o, v, live, aux):
     return (sd, o, v, aux) + K.cull_lists(sd, o, v, live=live)
 
 
-def check_path(torch, K, sd, o, v, live, variants, results, label):
+# the shade rows also timed on their first bounce and on one tile, and
+# whose walk-need share and launch sizes are reported
+WALK_ROWS = ("shade_point", "shade_facets")
+
+
+def exact_diff(a, b):
+    """The largest |difference| over every output and lane of two kernel
+    results (bools as 0 / 1, NaN equal to NaN, NaN against a number
+    inf)."""
+    import torch
+
+    a = a if isinstance(a, (tuple, list)) else (a,)
+    b = b if isinstance(b, (tuple, list)) else (b,)
+    worst = 0.0
+    for x, y in zip(a, b):
+        x, y = x.double(), y.double()
+        same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+        if not bool(same.all()):
+            d = torch.nan_to_num((x - y).abs()[~same], nan=float("inf"))
+            worst = max(worst, float(d.max()))
+    return worst
+
+
+def shade_calls(K, mode, kw):
+    """(kernel, twin) of a shade mode, area positions bound."""
+    if mode == "local":
+        return ((lambda *a: K.shade_local(*a, **kw)),
+                (lambda *a: K.shade_local_ref(*a, **kw)))
+    esc = mode == "escalate"
+    return ((lambda *a: K.shade_carry(*a, escalate=esc, **kw)),
+            (lambda *a: K.shade_carry_ref(*a, escalate=esc, **kw)))
+
+
+def shade_inputs(torch, K, sd, o, v, live, t, mat, nrm, props, seed=0):
+    """The shade kernel's inputs on a traced batch, as trace_fused_step
+    builds them: (base args, carry args, area keyword)."""
+    from ndt_tpu_torch.render.trace import (_area_positions, _shadow_culls,
+                                            fused_light_info)
+
+    R = o.shape[0]
+    kinds, lvec = fused_light_info(sd)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    area = _area_positions(sd, kinds, gen, R)
+    culls = _shadow_culls(sd, kinds, lvec, o, v, t, live, area)
+    rng = np.random.default_rng(5)
+    carry = tuple(torch.as_tensor(x.astype(np.float32), device="cuda")
+                  for x in (rng.uniform(0.2, 1, (R, 3)),
+                            rng.uniform(0.001, 1, R),
+                            rng.uniform(0, 0.5, (R, 3)))) + (live,)
+    return ((sd, o, v, t, mat, nrm, props, lvec, culls, kinds, True), carry,
+            {} if area is None else {"area": area})
+
+
+def walk_need(K, base, mode, live, kw):
+    """need [n_lights, R] of the shade launch (kernels.shade_walks_needed)
+    and its share of (lane, light) pairs."""
+    _, o, v, t, _, nrm, _, lvec, _, kinds, _ = base
+    need = K.shade_walks_needed(o, v, t, nrm, lvec, kinds,
+                                None if mode == "local" else live,
+                                kw.get("area"))
+    return need, float(need.double().mean())
+
+
+def shade_bound(sd, base, carry, mode, kw, need):
+    """(bound_ms, bound_by, bytes, operations) of one shade launch."""
+    _, o, v, t, mat, nrm, props, lvec, culls, kinds, _ = base
+    R, D = o.shape
+    # local: colour [R, 3]; carry: o' v' w' frac' colour' nxt (and taint)
+    outs = (R * 12 if mode == "local" else
+            2 * R * D * 4 + R * 29 + (R if mode == "escalate" else 0))
+    nbytes = (call_bytes(o, v, t, mat, nrm, props, lvec)
+              + (call_bytes(kw["area"]) if kw else 0)
+              + sum(call_bytes(*c) for c in culls)
+              + table_bytes(sd) + outs
+              + (0 if mode == "local" else call_bytes(*carry)))
+    ops = shade_ops(sd, kinds, culls, o, v, t, lvec, mode, need)
+    return (*bound(nbytes, ops), nbytes, ops)
+
+
+def shade_launch(K, mode, base, carry, kw):
+    """The shade kernel's launch alone, every argument bound and its
+    outputs allocated once: what the wrapper launches, without the
+    wrapper's checks and its stacking of the lights' culls."""
+    import torch
+
+    scn, o, v, t, mat, nrm, props, lvec, culls, kinds, specular = base
+    R = o.shape[0]
+    if mode == "local":
+        code = 2
+        io = (None,) * 11 + (torch.empty((R, 3), device=o.device),)
+    else:
+        code = 1 if mode == "escalate" else 0
+        w, frac, color, live = carry
+        io = (w, frac, color, live, torch.empty_like(o), torch.empty_like(v),
+              torch.empty_like(w), torch.empty_like(frac),
+              torch.empty_like(color),
+              torch.empty(R, dtype=torch.bool, device=o.device),
+              torch.empty(R, dtype=torch.bool, device=o.device), None)
+    keep, args = K._shade_args(scn, o, v, t, mat, nrm, props, lvec, culls,
+                               kinds, kw.get("area"), specular, code, io)
+    fn = K._entry(o, "ndt_shade", scn.dim)
+
+    def launch(keep=keep, io=io):
+        return fn(*args)
+    return launch
+
+
+def time_kernel(K, mode, base, carry, kw, baselines=()):
+    """[(label, call ms, kernel ms)] for this checkout's shade kernel and
+    each baseline's (another checkout's kernel library): device time per
+    call, CUDA events around 20 calls with the queue pre-filled, of the
+    wrapper's call (its stacking of the culls included) and of the kernel
+    launch alone (shade_launch); each baseline in turns with this one,
+    baseline, this, this, baseline, each number the mean of two."""
+    kern, _ = shade_calls(K, mode, kw)
+    args = base if mode == "local" else base + carry
+
+    def one():
+        launch = shade_launch(K, mode, base, carry, kw)
+        return (cuda_ms(lambda: kern(*args), 20, prefill=True),
+                cuda_ms(launch, 20, prefill=True))
+
+    mine = [one()]
+    out = []
+    for b in baselines:
+        with b.active(K):
+            b0 = one()
+        mine.append(one())
+        mine.append(one())
+        with b.active(K):
+            b1 = one()
+        out.append((b.name, (b0[0] + b1[0]) / 2, (b0[1] + b1[1]) / 2))
+    if baselines:
+        mine = mine[1:]
+    return [("this", sum(m[0] for m in mine) / len(mine),
+             sum(m[1] for m in mine) / len(mine))] + out
+
+
+def timing_line(times):
+    this, call, kern = times[0]
+    line = (f"call {call:.4f} ms, kernel alone {kern:.4f} ms device time "
+            f"(20 calls each, CUDA events, queue pre-filled)")
+    for name, bcall, bkern in times[1:]:
+        line += (f"; {name}'s: call {bcall:.4f}, kernel {bkern:.4f} ms "
+                 f"(x{bcall / call:.2f} of this call's time, "
+                 f"x{bkern / kern:.2f} of this kernel's)")
+    return line
+
+
+def check_shade(K, label, stage, name, mode, base, carry, kw, live, hit):
+    """One shade variant against its twin: the shading bars and every
+    output equal to the bit.  Returns (ok, colour max |diff|, kernel,
+    args)."""
+    kern, twin = shade_calls(K, mode, kw)
+    args = base if mode == "local" else base + carry
+    got, ref = kern(*args), twin(*args)
+    if mode == "local":
+        sok, serr, smsg = compare_local(got, ref, hit)
+    else:
+        sok, serr, smsg = compare_shade(got, ref, live)
+    eq = exact_diff(got, ref)
+    sok &= eq == 0
+    print(f"[kernels] {label} {name} ({mode}, lights {base[9]}) {stage}: "
+          f"{smsg}; every output on every lane max |diff| {eq:.3e} (bar 0)"
+          f" -> {'PASS' if sok else 'FAIL'}")
+    return sok, serr, kern, args
+
+
+def densest_tile(K, t, live):
+    """The RT-ray tile of a batch with the most live hit lanes."""
+    hit = (live & (t < 5e29)).reshape(-1, K.RT).sum(1)
+    return int(hit.argmax())
+
+
+def check_path(torch, K, sd, o, v, live, variants, results, label,
+               baseline=()):
     """Each variant against its twin on the primary rays and their first
     bounce; on the primary rays also, for a variant named in ``results``,
     its time, the twin's and the bound (other names are checked only).
     variants: name -> shade mode ("carry", "escalate", "local"), or None
     for the trace.  Area lights shade at points drawn from a seeded
-    generator (trace._area_positions), the same for kernel and twin."""
-    from ndt_tpu_torch.render.trace import (_area_positions, _shadow_culls,
-                                            fused_light_info)
-
+    generator (trace._area_positions), the same for kernel and twin.  A
+    WALK_ROWS variant is also checked and timed on the first bounce and
+    on one tile (the primary batch's densest, re-traced alone: the stack
+    loop's tail shape), with the share of pairs that need a walk;
+    ``baseline``: other checkouts' shade kernels (Baseline) timed beside
+    it."""
     R, D = o.shape
-    kinds, lvec = fused_light_info(sd)
-    gen = torch.Generator(device="cuda").manual_seed(0)
     aux = torch.full((R,), -1, dtype=torch.int32, device="cuda")
-    rng = np.random.default_rng(5)
-    w, frac, color = (torch.as_tensor(x.astype(np.float32), device="cuda")
-                      for x in (rng.uniform(0.2, 1, (R, 3)),
-                                rng.uniform(0.001, 1, R),
-                                rng.uniform(0, 0.5, (R, 3))))
     ok_all = True
     for stage in ("primary", "first bounce"):
         tr_args = trace_args(K, sd, o, v, live, aux)
@@ -581,72 +895,58 @@ def check_path(torch, K, sd, o, v, live, variants, results, label):
               f"{'PASS' if ok else 'FAIL'}")
         ok_all &= ok
         t, mat, nrm, props = got
-        area = _area_positions(sd, kinds, gen, R)
-        kw = {} if area is None else {"area": area}
-        culls = _shadow_culls(sd, kinds, lvec, o, v, t, live, area)
-        base = (sd, o, v, t, mat, nrm, props, lvec, culls, kinds, True)
+        base, carry, kw = shade_inputs(torch, K, sd, o, v, live, *got)
         hit = live & (t < 5e29)
         runs = {}
         for name, mode in variants.items():
             if mode is None:
                 continue
-            if mode == "local":
-                args = base
-                kern = (lambda *a, kw=kw: K.shade_local(*a, **kw))
-                twin = (lambda *a, kw=kw: K.shade_local_ref(*a, **kw))
-                sok, serr, smsg = compare_local(kern(*args), twin(*args),
-                                                hit)
-            else:
-                args = base + (w, frac, color, live)
-                esc = mode == "escalate"
-                kern = (lambda *a, esc=esc, kw=kw: K.shade_carry(
-                    *a, escalate=esc, **kw))
-                twin = (lambda *a, esc=esc, kw=kw: K.shade_carry_ref(
-                    *a, escalate=esc, **kw))
-                sok, serr, smsg = compare_shade(kern(*args), twin(*args),
-                                                live)
-            print(f"[kernels] {label} {name} ({mode}, lights {kinds}) "
-                  f"{stage}: {smsg} -> {'PASS' if sok else 'FAIL'}")
+            sok, serr, kern, args = check_shade(K, label, stage, name, mode,
+                                                base, carry, kw, live, hit)
             ok_all &= sok
-            runs[name] = (kern, twin, args, serr, mode)
+            runs[name] = (kern, args, serr, mode)
+            if name in WALK_ROWS and name in results:
+                time_shade(K, sd, label, stage, name, base, carry, kw, mode,
+                           live, baseline)
         if stage == "primary":
             for name, mode in variants.items():
                 if mode is None:
-                    runs[name] = (K.trace_closest, K.trace_closest_ref,
-                                  tr_args, err, None)
-            for name, (kern, twin, args, err_, mode) in runs.items():
+                    runs[name] = (K.trace_closest, tr_args, err, None)
+                elif name in WALK_ROWS and name in results:
+                    ok_all &= one_tile(torch, K, sd, o, v, live, t, label,
+                                       name, mode, baseline)
+            for name, (kern, args, err_, mode) in runs.items():
                 if name not in results:
                     continue
                 r = results[name]
                 r["max_abs_err"] = err_
-                r["ms"] = cuda_ms(lambda: kern(*args), 20, prefill=True)
-                r["plain_ms"] = cuda_ms(lambda: twin(*args), 3)
                 r["library_ms"] = None   # no one PyTorch call computes it
                 if mode is None:
+                    r["ms"] = cuda_ms(lambda: kern(*args), 20, prefill=True)
+                    r["plain_ms"] = cuda_ms(lambda: K.trace_closest_ref(
+                        *args), 3)
                     nbytes = (call_bytes(*args[1:]) + table_bytes(sd)
                               + call_bytes(*got))
                     ops = (exit_walk_ops(sd, args[5], args[6], t, live)
                            if exit_ else walk_ops(sd, args[4], args[5]))
                     ops += float(hit.sum()) * (solve_ops(sd)["sph"]
                                                + solve_ops(sd)["normal"])
+                    r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+                    timing = (f"kernel {r['ms']:.4f} ms device time (mean of "
+                              f"20, queue pre-filled)")
                 else:
-                    # local: colour [R, 3]; carry: o' v' w' frac' colour'
-                    # nxt (and taint)
-                    outs = (R * 12 if mode == "local" else
-                            2 * R * D * 4 + R * 29
-                            + (R if mode == "escalate" else 0))
-                    nbytes = (call_bytes(o, v, t, mat, nrm, props, lvec)
-                              + (call_bytes(area) if kw else 0)
-                              + sum(call_bytes(*c) for c in culls)
-                              + table_bytes(sd) + outs
-                              + (0 if mode == "local" else
-                                 call_bytes(w, frac, color, live)))
-                    ops = shade_ops(sd, kinds, culls, o, v, t, lvec, mode)
-                r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
-                print(f"[kernels] {label} {name} at {R} primary rays: kernel "
-                      f"{r['ms']:.4f} ms device time (mean of 20, queue "
-                      f"pre-filled), twin {r['plain_ms']:.3f} ms (mean of "
-                      f"3), bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                    _, twin = shade_calls(K, mode, kw)
+                    times = time_kernel(K, mode, base, carry, kw, baseline)
+                    r["ms"], r["kernel_ms"] = times[0][1:]
+                    r["plain_ms"] = cuda_ms(lambda: twin(*args), 3)
+                    need, share = walk_need(K, base, mode, live, kw)
+                    r["bound_ms"], r["bound_by"], nbytes, ops = shade_bound(
+                        sd, base, carry, mode, kw, need)
+                    timing = (timing_line(times)
+                              + f", pairs needing a walk {share:.4f}")
+                print(f"[kernels] {label} {name} at {R} primary rays: "
+                      f"{timing}, twin {r['plain_ms']:.3f} ms (mean of 3), "
+                      f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
                       f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
                 if name == "trace_early_exit":
                     full = tr_args[:4] + K.cull_lists(sd, o, v, live=live)
@@ -655,10 +955,41 @@ def check_path(torch, K, sd, o, v, live, variants, results, label):
                     print(f"[kernels] {label} the same trace without the "
                           f"early exit (gid-ordered lists): kernel {ms:.4f} "
                           f"ms device time (mean of 20, queue pre-filled)")
-            o2, v2, _, _, _, nxt = K.shade_carry_ref(
-                *(base + (w, frac, color, live)), **kw)
+            o2, v2, _, _, _, nxt = K.shade_carry_ref(*(base + carry), **kw)
             o, v, live = o2.contiguous(), v2.contiguous(), nxt
     return ok_all
+
+
+def time_shade(K, sd, label, stage, name, base, carry, kw, mode, live,
+               baseline):
+    """Time a shade variant on a batch beside its bound and print both
+    with the share of (lane, light) pairs that need a walk."""
+    times = time_kernel(K, mode, base, carry, kw, baseline)
+    need, share = walk_need(K, base, mode, live, kw)
+    bms, by, nbytes, ops = shade_bound(sd, base, carry, mode, kw, need)
+    print(f"[kernels] {label} {name} {stage} at {base[1].shape[0]} rays: "
+          f"{timing_line(times)}, pairs needing a walk "
+          f"{share:.4f} ({int(need.sum())} of {need.numel()}), bound "
+          f"{bms:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} "
+          f"GFLOP)")
+
+
+def one_tile(torch, K, sd, o, v, live, t, label, name, mode, baseline):
+    """A WALK_ROWS variant on one tile of the primary batch (its densest,
+    re-traced alone): checked against its twin, then timed."""
+    k = densest_tile(K, t, live)
+    rows = slice(k * K.RT, (k + 1) * K.RT)
+    o1, v1, l1 = o[rows].contiguous(), v[rows].contiguous(), live[rows]
+    aux = torch.full((K.RT,), -1, dtype=torch.int32, device="cuda")
+    got = K.trace_closest(*trace_args(K, sd, o1, v1, l1, aux))
+    base, carry, kw = shade_inputs(torch, K, sd, o1, v1, l1, *got)
+    hit = l1 & (got[0] < 5e29)
+    stage = f"one tile (tile {k})"
+    ok = check_shade(K, label, stage, name, mode, base, carry, kw, l1,
+                     hit)[0]
+    time_shade(K, sd, label, stage, name, base, carry, kw, mode, l1,
+               baseline)
+    return ok
 
 
 def facet_batch(dim):
@@ -797,24 +1128,26 @@ def check_walks(torch, K, scn, W, H, results, label, name, limit=None):
     return ok
 
 
-def phase_kernels(torch, K, results):
+def phase_kernels(torch, K, results, baseline=()):
     """Phase 3: every kernel variant against its twin at its path's
-    shapes."""
+    shapes; the shade rows also timed against ``baseline``'s kernel."""
     ok = check_path(torch, K, *primary_rays(balls_scene(), 1920, 1080,
                                             1 << 20),
                     {"trace_closest": None, "shade_carry": "carry"},
-                    results, "balls 1080p")
+                    results, "balls 1080p", baseline)
     ok &= check_path(torch, K, *primary_rays(scene("anim6d", 6, 1, 4), 640,
                                              480),
                      {"trace_gated": None, "shade_escalate": "escalate",
                       "shade_local": "local", "shade_point": "carry"},
-                     results, "anim6d 640x480")
-    ok &= check_path(torch, K, *primary_rays(scene("lights3d", 3), 200, 150),
-                     {"shade_spot": "carry"}, results, "lights3d 200x150")
+                     results, "anim6d 640x480", baseline)
+    ok &= check_path(torch, K, *primary_rays(scene("lights3d", 3), 200,
+                                             150),
+                     {"shade_spot": "carry"}, results, "lights3d 200x150",
+                     baseline)
     ok &= check_path(torch, K, *primary_rays(scene("test", 4), 640, 480),
                      {"trace_facets": None, "shade_facets": "escalate",
                       "shade (carry)": "carry", "shade (local)": "local"},
-                     results, "test 4-D 640x480")
+                     results, "test 4-D 640x480", baseline)
     ok &= check_path(torch, K, *primary_rays(scene("test", 3), 320, 240),
                      {"trace": None, "shade (escalate)": "escalate",
                       "shade (local)": "local"}, results, "test 3-D 320x240")
@@ -852,7 +1185,7 @@ def phase_kernels(torch, K, results):
                      {"trace": None, "shade_area": "carry",
                       "shade (local)": "local",
                       "shade (escalate)": "escalate"}, results,
-                     "area 640x480")
+                     "area 640x480", baseline)
     return ok
 
 
@@ -1126,12 +1459,60 @@ def engine_counters(engine):
             setattr(engine, n, f)
 
 
+@contextlib.contextmanager
+def shade_launch_sizes():
+    """Record (mode, R) of every shade launch of the fused path in the
+    block (the wrappers trace_fused and trace_fused_step call), and keep
+    the arguments of the first one-tile local launch (where the stack
+    loop's tail begins) as ("tail", args, kwargs)."""
+    from ndt_tpu_torch.render import trace as T
+    from ndt_tpu_torch.render.kernels import RT
+
+    sizes = []
+    orig = {n: getattr(T, n) for n in ("shade_local", "shade_carry")}
+
+    def local(*a, **k):
+        sizes.append(("local", a[1].shape[0]))
+        if a[1].shape[0] == RT and not any(x[0] == "tail" for x in sizes):
+            sizes.append(("tail", a, k))
+        return orig["shade_local"](*a, **k)
+
+    def carry(*a, **k):
+        sizes.append(("escalate" if k.get("escalate") else "carry",
+                      a[1].shape[0]))
+        return orig["shade_carry"](*a, **k)
+
+    T.shade_local, T.shade_carry = local, carry
+    try:
+        yield sizes
+    finally:
+        T.shade_local, T.shade_carry = orig["shade_local"], orig["shade_carry"]
+
+
+def print_launch_sizes(label, sizes):
+    """The shade launches of a frame: per mode, and how many of each size
+    R (rays, a multiple of the 4096-ray tile)."""
+    from ndt_tpu_torch.render.kernels import RT
+
+    sizes = [x for x in sizes if x[0] != "tail"]
+    modes = collections.Counter(m for m, _ in sizes)
+    hist = sorted(collections.Counter(r for _, r in sizes).items())
+    print(f"[frame] {label} shade launches: {len(sizes)} ({dict(modes)}); "
+          f"launch-size histogram R: count "
+          f"{ {r: n for r, n in hist} }; in tiles of {RT}: 1 tile "
+          f"{sum(n for r, n in hist if r == RT)}, 2-15 "
+          f"{sum(n for r, n in hist if RT < r < 16 * RT)}, 16+ "
+          f"{sum(n for r, n in hist if r >= 16 * RT)}")
+
+
 def timed_frames(torch, K, scn, opts, names, results, label, card,
-                 reps=3, also=(), warm=True):
+                 reps=3, also=(), warm=True, sizes=False, baseline=()):
     """Warm-up (unless the caller rendered this frame just before), then
     ``reps`` frames; the counters are set to 0 right before the first
     timed frame and read right after it.  ``names``: the kernels whose
-    launches this path records; ``also``: kernels it must launch too."""
+    launches this path records; ``also``: kernels it must launch too;
+    ``sizes``: print the first timed frame's shade launch sizes and time
+    its last one-tile shade launch (beside ``baseline``'s kernels)."""
     from ndt_tpu_torch.render import engine
 
     if warm:
@@ -1141,7 +1522,8 @@ def timed_frames(torch, K, scn, opts, names, results, label, card,
     for i in range(reps):
         if i == 0:
             K.reset_launch_counts()
-            with engine_counters(engine) as counts:
+            with engine_counters(engine) as counts, \
+                    shade_launch_sizes() as shade_sizes:
                 t0 = time.perf_counter()
                 img, _, rays = quiet(engine.render_frame, scn, opts)
                 torch.cuda.synchronize()
@@ -1169,7 +1551,32 @@ def timed_frames(torch, K, scn, opts, names, results, label, card,
           f"{', '.join(f'{x:.4f}' for x in times)}), {rays} rays/frame, "
           f"{rays / s / 1e6:.2f} Mrays/s; launches {launches} in the first "
           f"timed frame{extra}")
+    if sizes:
+        print_launch_sizes(label, shade_sizes)
+        time_tail(K, label, shade_sizes, baseline)
     return ok
+
+
+def time_tail(K, label, shade_sizes, baseline):
+    """The frame's first one-tile local shade launch (where the stack
+    loop's tail begins), re-run: checked against its twin to the bit and
+    timed."""
+    tail = [x for x in shade_sizes if x[0] == "tail"]
+    if not tail:
+        return
+    _, a, k = tail[-1]
+    eq = exact_diff(K.shade_local(*a, **k), K.shade_local_ref(*a, **k))
+    times = time_kernel(K, "local", a, None, k, baseline)
+    _, o, v, t, _, nrm, _, lvec, _, kinds, _ = a
+    need = K.shade_walks_needed(o, v, t, nrm, lvec, kinds, None,
+                                k.get("area"))
+    print(f"[frame] {label} stack-tail shade_local launch at {o.shape[0]} "
+          f"rays: every output max |diff| {eq:.3e} against the twin; "
+          f"{timing_line(times)}, pairs needing a walk "
+          f"{float(need.double().mean()):.4f}")
+    if eq:
+        raise RuntimeError(f"{label}: the stack-tail launch differs from "
+                           "its twin")
 
 
 def busy_share(scn, opts, label):
@@ -1189,7 +1596,7 @@ def busy_share(scn, opts, label):
     return res["busy_share"] > 0
 
 
-def phase_frames(torch, K, card, results):
+def phase_frames(torch, K, card, results, baseline=()):
     from ndt_tpu_torch.render.engine import RenderOptions
 
     ok = timed_frames(torch, K, balls_scene(),
@@ -1200,14 +1607,15 @@ def phase_frames(torch, K, card, results):
                        RenderOptions(width=640, height=480),
                        ("trace_gated", "shade_escalate", "shade_local",
                         "shade_point"), results, "anim6d 6-D f1", card,
-                       reps=1)
+                       reps=1, sizes=True, baseline=baseline)
     opts = RenderOptions(width=640, height=480)
     test4 = scene("test", 4)
     # one timed frame (its profiled frame below is another sample): the
     # host-bound stack frames take 10-16 s each
     ok &= timed_frames(torch, K, test4, opts, ("shade_facets",), results,
                        "test 4-D f0", card, reps=1,
-                       also=("trace_gated", "trace_facets", "shade_point"))
+                       also=("trace_gated", "trace_facets", "shade_point"),
+                       sizes=True, baseline=baseline)
     ok &= busy_share(test4, opts, "test 4-D f0")
     r150 = quiet(scene, "random", 5, config="150")
     ok &= timed_frames(torch, K, r150, opts,
@@ -1241,7 +1649,14 @@ def phase_frames(torch, K, card, results):
     return ok
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", metavar="TREE", action="append",
+                    default=[],
+                    help="another checkout (e.g. a git archive of the parent "
+                    "commit) whose shade kernel is timed beside this one's; "
+                    "may be repeated")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1259,19 +1674,23 @@ def main():
     print(f"[env] torch {torch.__version__} (CUDA {torch.version.cuda}), "
           f"device {torch.cuda.get_device_name(0)}, "
           f"{build.nvcc_version(build.find_nvcc())}")
+    baseline = [Baseline(tree) for tree in args.baseline]
+    print_registers(build.build()[1], "this checkout's")
     build.load_library()
+    for b in baseline:
+        b.load()
     print(f"[build] kernels ready; phase 1-2 took "
           f"{time.perf_counter() - t0:.1f} s")
 
     results = {name: dict(name=name, route="cuda", source=src, replaces=rep)
                for name, (src, rep) in KERNELS.items()}
     ok = True
-    for label, phase in (("kernels", lambda: phase_kernels(torch, K,
-                                                          results)),
-                         ("golden", lambda: phase_golden(torch, K, card,
-                                                         results)),
-                         ("frames", lambda: phase_frames(torch, K, card,
-                                                         results))):
+    phases = (("kernels", lambda: phase_kernels(torch, K, results,
+                                                baseline)),
+              ("golden", lambda: phase_golden(torch, K, card, results)),
+              ("frames", lambda: phase_frames(torch, K, card, results,
+                                              baseline)))
+    for label, phase in phases:
         t0 = time.perf_counter()
         ok &= bool(phase())
         print(f"[{label}] phase took {time.perf_counter() - t0:.1f} s")

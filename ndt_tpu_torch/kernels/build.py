@@ -37,6 +37,9 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# ndt_shade_d<D>'s C signature (csrc/shade.cu)
+SHADE_ARGTYPES = ([_P] * 8 + [ctypes.c_char_p, _I] + [_P] * 3 + [_I] * 4
+                  + [_P] * 12 + [_I, _P])
 
 
 def find_nvcc() -> str:
@@ -60,9 +63,10 @@ def _sources():
                   if f.endswith((".cu", ".cuh")))
 
 
-def build() -> str:
+def build() -> tuple[str, list[str]]:
     """Compile the library if this checkout's build is missing; return its
-    path."""
+    path and ptxas' register / spill / shared-memory lines of this build
+    (none when the library was already built)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         with open(src, "rb") as f:
@@ -70,7 +74,7 @@ def build() -> str:
     tag = h.hexdigest()[:16]
     out = os.path.join(_BUILD, f"libndt_kernels_{tag}.so")
     if os.path.exists(out):
-        return out
+        return out, []
     nvcc = find_nvcc()
     os.makedirs(_BUILD, exist_ok=True)
     units = [(s, d) for s in _sources() if s.endswith(".cu") for d in DIMS]
@@ -107,17 +111,19 @@ def build() -> str:
     print(f"[ndt_tpu_torch] built {os.path.basename(out)} from "
           f"{len(units)} translation units (sources x D) in parallel in "
           f"{time.perf_counter() - t0:.1f} s; ptxas:")
-    for line in "".join(reports).splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("  " + line.strip())
-    return out
+    report = [
+        line.strip() for line in "".join(reports).splitlines()
+        if "registers" in line or "spill" in line or "Compiling entry" in line]
+    for line in report:
+        print("  " + line)
+    return out, report
 
 
 def load_library():
     """The kernel library, built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
+        lib = ctypes.CDLL(build()[0])
         for d in DIMS:
             fn = getattr(lib, f"ndt_trace_closest_d{d}")
             fn.argtypes = [_P] * 8 + [_I] + [_P] * 5 + [_I, _P]
@@ -127,8 +133,7 @@ def load_library():
                 fn.argtypes = [_P] * 8 + [_I] + [_P] * 2 + [_I, _P]
                 fn.restype = _I
             fn = getattr(lib, f"ndt_shade_d{d}")
-            fn.argtypes = ([_P] * 8 + [ctypes.c_char_p, _I] + [_P] * 3
-                           + [_I] * 4 + [_P] * 12 + [_I, _P])
+            fn.argtypes = SHADE_ARGTYPES
             fn.restype = _I
         _lib = lib
     return _lib

@@ -25,7 +25,9 @@ Counterpart of ``ndt_tpu/render/pallas_trace.py``:
                        csrc/trace_closest.cu, twin trace_shadow_ref
   shade_carry       <- pallas_shade(carry=...) (L1128, _make_shade_kernel
                        L886), optionally with escalate (L1112-1119):
-                       csrc/shade.cu, twin shade_carry_ref
+                       csrc/shade.cu, twin shade_carry_ref; a light's
+                       shadow walk runs only where its result is read
+                       (_walk_needed), which changes no output
   shade_local       <- pallas_shade(carry=None) (L1075-1078): the local
                        colour only, csrc/shade.cu, twin shade_local_ref
 
@@ -936,11 +938,80 @@ def _first_rank_ref(scn, lp, sv, limit):
     return fr
 
 
+def _walk_needed(hitm, live, two_sided, cone):
+    """need(r, li) of the shade kernel (csrc/shade.cu): is light li's
+    shadow walk for ray r read at all?  ``lit`` needs a hit, the two-sided
+    test and, for a spot, the cone; carry and escalate read no local
+    colour of a dead lane (``live`` None: local mode, every lane).  Where
+    need is False the walk changes no output, so the kernel skips it and
+    the twin ANDs need into ``shadow_ok``."""
+    need = hitm & two_sided
+    if live is not None:
+        need = need & live
+    if cone is not None:
+        need = need & cone
+    return need
+
+
+def _light_terms(lvec, kinds, p, n1, area):
+    """Per light of the fused table, what the shade kernel derives from the
+    hit points p before any walk: (kind, colour, spec colour, unit
+    direction lvu, squared distance, rl_dot_n, the spot's cone test (None
+    for another kind), the shadow ray's origin and direction: for a
+    point-type light its position and lvu)."""
+    D = len(p)
+    a_i = 0
+    for kind, o_col, o_spec, o_geo in light_fields(kinds, D)[0]:
+        lcol = [lvec[o_col + j] for j in range(3)]
+        lspec = [lvec[o_spec + j] for j in range(3)]
+        cone = None
+        if kind == "d":
+            # directional (ndt.c:230-249): from the surface, EPSILON off,
+            # toward -unit(light dir); blocked by any hit
+            u = [lvec[o_geo + d] for d in range(D)]
+            so = [fma(-u[d], EPSILON, p[d]) for d in range(D)]
+            sv = [0.0 - u[d] for d in range(D)]
+            lvu, ldist2 = u, 1.0
+        else:
+            # point / spot / area (ndt.c:209-228): from the LIGHT toward
+            # the surface.  An area light is a point light at the ray's
+            # sampled position (ndt.c:143-147)
+            if kind == "a":
+                lp = [area[a_i][:, d] for d in range(D)]
+                a_i += 1
+            else:
+                lp = [lvec[o_geo + d] for d in range(D)]
+            sd_ = [p[d] - lp[d] for d in range(D)]
+            ldist2 = dot(sd_, sd_)
+            inv = 1.0 / torch.clamp_min(sqrt(ldist2), 1e-20)
+            lvu = [sd_[d] * inv for d in range(D)]
+            so, sv = lp, lvu
+            if kind == "s":      # cone (ndt.c:201-207)
+                cone = dot([lvec[o_geo + D + d] for d in range(D)],
+                           lvu) >= lvec[o_geo + 2 * D]
+        yield kind, lcol, lspec, lvu, ldist2, -dot(lvu, n1), cone, so, sv
+
+
+def shade_walks_needed(o, v, t, nrm, lvec, kinds, live=None, area=None):
+    """[n_lights, R] bool: need(r, li) (see _walk_needed) for each light
+    of the fused table; ``live`` None in local mode."""
+    D = o.shape[1]
+    n1 = [nrm[:, d] for d in range(D)]
+    p = [fma(t, v[:, d], o[:, d]) for d in range(D)]
+    rv_dot_n = -t * dot([v[:, d] for d in range(D)], n1)
+    hitm = t < BIG * 0.5
+    return torch.stack([
+        _walk_needed(hitm, live, rl_dot_n * rv_dot_n > 0.0, cone)
+        for _, _, _, _, _, rl_dot_n, cone, _, _ in _light_terms(
+            lvec, kinds, p, n1, area)])
+
+
 def _shade_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
-               kinds, specular, area=None):
+               kinds, specular, area=None, live=None):
     """apply_lights (ndt.c:71-326) as the fused shade kernel computes it
     (pallas_trace L984-1074).  ``area`` [n_area, R, D]: the sampled
-    position of each 'a' light per ray, in light order.  Returns the local
+    position of each 'a' light per ray, in light order; ``live``: the
+    carry modes' live lanes (None in local mode).  Returns the local
     colour (3 [R] tensors) and the terms the chain bounce reuses."""
     R, D = o.shape
     oc = [o[:, d] for d in range(D)]
@@ -956,51 +1027,26 @@ def _shade_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
     vdotn = dot(vc, n1)
     rv_dot_n = -t * vdotn                       # rev_view . n (ndt.c:160)
     out = [wc[j] * lvec[j] for j in range(3)]   # ambient (ndt.c:89-111)
-    a_i = 0
-    for li, (kind, o_col, o_spec, o_geo) in enumerate(light_fields(kinds,
-                                                                   D)[0]):
-        lcol = [lvec[o_col + j] for j in range(3)]
-        lspec = [lvec[o_spec + j] for j in range(3)]
+    for li, (kind, lcol, lspec, lvu, ldist2, rl_dot_n, cone, so,
+             sv) in enumerate(_light_terms(lvec, kinds, p, n1, area)):
         lists, counts = culls[li]
-        if kind == "d":
-            # directional (ndt.c:230-249): from the surface, EPSILON off,
-            # toward -unit(light dir); blocked by any hit
-            u = [lvec[o_geo + d] for d in range(D)]
-            so = [fma(-u[d], EPSILON, p[d]) for d in range(D)]
-            sv = [0.0 - u[d] for d in range(D)]
-            t_s = _closest_ref(scn, lists, counts, so, sv)[0]
-            shadow_ok = ~(t_s < BIG * 0.5)
-            lvu, ldist2 = u, 1.0
-            rl_dot_n = -dot(u, n1)
-        else:
-            # point / spot / area (ndt.c:209-228): from the LIGHT toward
-            # the surface; lit iff the closest hit within the limit is the
-            # same object within EPSILON of the shaded point.  An area
-            # light is a point light at the ray's sampled position
-            # (ndt.c:143-147)
-            if kind == "a":
-                lp = [area[a_i][:, d] for d in range(D)]
-                a_i += 1
-            else:
-                lp = [lvec[o_geo + d] for d in range(D)]
-            sd_ = [p[d] - lp[d] for d in range(D)]
-            dist2 = dot(sd_, sd_)
-            dist = sqrt(dist2)
-            inv = 1.0 / torch.clamp_min(dist, 1e-20)
-            sv = [sd_[d] * inv for d in range(D)]
-            fr = _first_rank_ref(scn, lp, sv, dist + EPSILON)
-            t_s, m_s, _, _ = _closest_ref(scn, lists, counts, lp, sv,
-                                          first_rank=fr)
-            e = [fma(t_s, sv[d], lp[d]) - p[d] for d in range(D)]
-            d2 = dot(e, e)
-            shadow_ok = (t_s < BIG * 0.5) & (m_s == mat) & (d2 <= EPSILON2)
-            if kind == "s":      # cone (ndt.c:201-207)
-                cosang = dot([lvec[o_geo + D + d] for d in range(D)], sv)
-                shadow_ok &= cosang >= lvec[o_geo + 2 * D]
-            lvu, ldist2 = sv, dist2
-            rl_dot_n = -dot(sv, n1)
         # two-sided test (ndt.c:160-168)
-        lit = (rl_dot_n * rv_dot_n > 0.0) & shadow_ok & hitm
+        two_sided = rl_dot_n * rv_dot_n > 0.0
+        need = _walk_needed(hitm, live, two_sided, cone)
+        if kind == "d":
+            t_s = _closest_ref(scn, lists, counts, so, sv)[0]
+            walk_ok = ~(t_s < BIG * 0.5)
+        else:
+            # from the light (so): lit iff the closest hit within the
+            # limit is the same object within EPSILON of the shaded point
+            fr = _first_rank_ref(scn, so, sv, sqrt(ldist2) + EPSILON)
+            t_s, m_s, _, _ = _closest_ref(scn, lists, counts, so, sv,
+                                          first_rank=fr)
+            e = [fma(t_s, sv[d], so[d]) - p[d] for d in range(D)]
+            walk_ok = (t_s < BIG * 0.5) & (m_s == mat) & (dot(e, e)
+                                                         <= EPSILON2)
+        shadow_ok = need & walk_ok
+        lit = two_sided & shadow_ok & hitm
         # diffuse |cos| / dist^2, opaque only (ndt.c:261-273)
         ndotl = dot(n1, lvu)
         cos_a = ndotl.abs() / torch.where(nlen > EPSILON, nlen, 1.0)
@@ -1050,7 +1096,8 @@ def shade_carry_ref(scn: DeviceScene, o, v, t, mat, nrm, props, lvec,
     (L1112-1119): a live lane whose winner is transparent taints and
     freezes (nxt False); the return gains taint [R] bool."""
     out, hitm, p, vdotn, nn, wr, wt = _shade_ref(
-        scn, o, v, t, mat, nrm, props, lvec, culls, kinds, specular, area)
+        scn, o, v, t, mat, nrm, props, lvec, culls, kinds, specular, area,
+        live)
     D = o.shape[1]
     hit = hitm & live
     contrib = torch.maximum(torch.maximum(wr[0], wr[1]), wr[2])
@@ -1175,20 +1222,27 @@ def _count_shade(scn, mode_name, kinds):
 _SHADE_CARRY, _SHADE_ESCALATE, _SHADE_LOCAL = 0, 1, 2
 
 
-def _launch_shade(fn, scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
-                  area, specular, mode, io):
-    """io: (w, frac, color, live, o', v', w', frac', color', nxt, taint,
-    local), None where the mode has no such array."""
-    R = o.shape[0]
+def _shade_args(scn, o, v, t, mat, nrm, props, lvec, culls, kinds, area,
+                specular, mode, io):
+    """ndt_shade's arguments: io is (w, frac, color, live, o', v', w',
+    frac', color', nxt, taint, local), None where the mode has no such
+    array.  Returns (what must outlive the call: the packed tables and
+    the lights' stacked culls, the argument tuple)."""
     lists = torch.stack([c[0] for c in culls]).contiguous()
     counts = torch.stack([c[1] for c in culls]).contiguous()
     tables = _c_tables(scn)
-    err = fn(
+    return (tables, lists, counts), (
         ctypes.addressof(tables), _p(o), _p(v), _p(t), _p(mat), _p(nrm),
         _p(props), _p(lvec), "".join(kinds).encode(), len(kinds), _p(area),
         _p(lists), _p(counts), lists.shape[2], int(bool(specular)),
-        int(SPECULAR_POWER), mode, *(_p(x) for x in io), R, _stream())
-    _raise_on(err, "shade")
+        int(SPECULAR_POWER), mode, *(_p(x) for x in io), o.shape[0],
+        _stream())
+
+
+def _launch_shade(fn, *a):
+    """Launch ndt_shade (fn) with _shade_args(*a)."""
+    _keep, args = _shade_args(*a)
+    _raise_on(fn(*args), "shade")
 
 
 # --------------------------------------------------------------------------
