@@ -4,16 +4,19 @@
     python3 chip_smoke.py [--baseline TREE ...]
 
 --baseline TREE (repeatable): another checkout, e.g. a git archive of the
-parent commit, whose csrc/shade.cu is built too and timed beside this
-one's on every timed shade batch, in turns (baseline, this, this,
-baseline).
+parent commit, whose csrc/shade.cu and csrc/trace_closest.cu are built too
+(D = 3, 4, 5, 6) and timed beside this one's on every timed shade and trace
+batch and every launch of the census, in turns (baseline, this, this,
+baseline); its trace results are held to this one's bits.
 
 Phases (each prints its own lines and its seconds; any failure exits
 nonzero with no "ok" line):
   1. the card (nvidia-smi name and power limit), torch, nvcc;
   2. the nvcc build of the kernels (one nvcc per source and dimension, in
-     parallel), and each shade_kernel instance's registers, spills,
-     shared memory and resident blocks per SM (from ptxas' report);
+     parallel), and the registers, spills, shared memory and resident
+     blocks per SM (from ptxas' report) of each shade_kernel instance and
+     of the trace kernels' instances the timed paths run
+     (TRACE_INSTANCES);
   3. each CUDA kernel variant against its plain PyTorch twin on the card,
      at the shapes its path gives it, then its time (CUDA events), the
      twin's, and the least time the card could take (bound_ms).  Every
@@ -50,6 +53,15 @@ nonzero with no "ok" line):
          capped early exit, also held to the full walk within the cap);
        - shade_area (the shade kernel's 'a' kind): the area scene (a DISK
          and a RECT light) at 640x480, primary and first bounce;
+  3b. the census: every trace launch of one 640x480 frame, captured where
+     the main path calls the wrapper and re-run alone -- random150 fused
+     (trace_closest with the early exit), the test scene unfused
+     (trace_shadow), the test scene and anim6d fused (the stack loops'
+     closest hits) --: per launch R, its live (or real) lanes, the tile
+     lists' lengths, with the exit the candidates within each live lane's
+     final t, the group size G the kernel picks, its device time (CUDA
+     events) beside each baseline's, held to its twin and to each
+     baseline's bits; and each frame's summed trace time;
   4. frames on the card against the C reference's golden PNGs: balls 4-D
      f0 640x480 (RMSE < 1e-3, rows 180:260 against the CPU twins);
      anim6d 160x120 f0-f3 (rows 30:90, RMSE < 1e-3); lights3d 200x150
@@ -538,40 +550,59 @@ def blocks_per_sm(regs, smem, threads=128):
     return min(by_regs, by_smem, 64 // warps, 32)
 
 
+# the trace kernel instances whose registers are printed: (D, A, mode) of
+# balls (closest, any), anim6d, test 4-D (closest, shadow) and random150
+# (closest, shadow)
+TRACE_INSTANCES = ((4, 1, 0), (4, 1, 1), (6, 2, 0), (4, 2, 0), (4, 2, 2),
+                   (5, 4, 0), (5, 4, 2))
+
+
 def print_registers(lines, who):
-    for args, (regs, st, ld, smem) in sorted(
-            kernel_instances(lines, "shade_kernel").items()):
-        print(f"[build] {who} shade_kernel<{', '.join(map(str, args))}>: "
+    """Registers, spills, shared memory and resident blocks per SM of every
+    shade_kernel instance and of the TRACE_INSTANCES of each trace kernel
+    (trace_kernel and, where the checkout has it, trace_group_kernel)."""
+    rows = [("shade_kernel", args, stats) for args, stats in sorted(
+        kernel_instances(lines, "shade_kernel").items())]
+    for kern in ("trace_kernel", "trace_group_kernel"):
+        inst = kernel_instances(lines, kern)
+        rows += [(kern, args, inst[args]) for args in TRACE_INSTANCES
+                 if args in inst]
+    for kern, args, (regs, st, ld, smem) in rows:
+        print(f"[build] {who} {kern}<{', '.join(map(str, args))}>: "
               f"{regs} registers, spill stores {st} B, spill loads {ld} B, "
               f"{smem} B static shared memory; {blocks_per_sm(regs, smem)} "
               f"resident 128-thread blocks per SM (worked out from the "
               f"registers and shared memory)")
 
 
-# the dimensions of the shade rows timed against a baseline
-BASELINE_DIMS = (3, 4, 6)
+# the dimensions of the rows timed against a baseline: the shade rows' and
+# the trace rows' (D = 5: random150)
+BASELINE_DIMS = (3, 4, 5, 6)
+BASELINE_SOURCES = ("shade.cu", "trace_closest.cu")
 
 
 class Baseline:
-    """Another checkout's shade kernel (``tree``/ndt_tpu_torch/csrc/
-    shade.cu, built as kernels/build.py builds this one's, one nvcc per D
-    of BASELINE_DIMS, started at once), timed beside this one's in one
-    call."""
+    """Another checkout's kernels (``tree``/ndt_tpu_torch/csrc/shade.cu and
+    trace_closest.cu, built as kernels/build.py builds this one's, one nvcc
+    per source and D of BASELINE_DIMS, all started at once), timed beside
+    this one's in one call.  Its C interface must be this checkout's."""
 
     def __init__(self, tree):
         from ndt_tpu_torch.kernels import build
 
         self.name = os.path.basename(os.path.normpath(tree))
-        src = os.path.join(tree, "ndt_tpu_torch", "csrc", "shade.cu")
-        self.out = os.path.join(tree, "_shade_build")
+        csrc = os.path.join(tree, "ndt_tpu_torch", "csrc")
+        self.out = os.path.join(tree, "_baseline_build")
         os.makedirs(self.out, exist_ok=True)
         self.nvcc = build.find_nvcc()
-        self.objs = [os.path.join(self.out, f"shade.d{d}.o")
-                     for d in BASELINE_DIMS]
+        units = [(src, d) for src in BASELINE_SOURCES for d in BASELINE_DIMS]
+        self.objs = [os.path.join(self.out, f"{src}.d{d}.o")
+                     for src, d in units]
         self.procs = [subprocess.Popen(
-            [self.nvcc, *build.NVCC_FLAGS, f"-DNDT_DIM={d}", "-c", src, "-o",
-             obj], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for d, obj in zip(BASELINE_DIMS, self.objs)]
+            [self.nvcc, *build.NVCC_FLAGS, f"-DNDT_DIM={d}", "-c",
+             os.path.join(csrc, src), "-o", obj], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for (src, d), obj in zip(units, self.objs)]
         self.lib = None
 
     def load(self):
@@ -584,28 +615,93 @@ class Baseline:
         for proc in self.procs:
             so, se = proc.communicate()
             if proc.returncode:
-                raise RuntimeError(f"{self.name} shade.cu: nvcc failed:\n{se}")
+                raise RuntimeError(f"{self.name}: nvcc failed:\n{se}")
             report += (so + se).splitlines()
-        path = os.path.join(self.out, "libshade.so")
+        path = os.path.join(self.out, "libbaseline.so")
         subprocess.run([self.nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                         "-shared", "-o", path, *self.objs], check=True,
                        capture_output=True)
         self.lib = ctypes.CDLL(path)
         for d in BASELINE_DIMS:
-            fn = getattr(self.lib, f"ndt_shade_d{d}")
-            fn.argtypes = build.SHADE_ARGTYPES
-            fn.restype = ctypes.c_int
+            build.bind(self.lib, d)
         print_registers(report, self.name)
 
     @contextlib.contextmanager
     def active(self, K):
-        """The shade wrappers launch this checkout's kernel in the block."""
+        """The trace and shade wrappers launch this checkout's kernels in
+        the block."""
         orig = K._entry
         K._entry = lambda x, name, dim: getattr(self.lib, f"{name}_d{dim}")
         try:
             yield
         finally:
             K._entry = orig
+
+
+def time_turns(K, fn, baselines, reps=20):
+    """[(label, ms, turns)]: the device time per call of ``fn`` (CUDA events
+    around ``reps`` calls, queue pre-filled) with this checkout's kernels,
+    then with each baseline's in turns with this one (baseline, this, this,
+    baseline); ms is the mean of a label's turns, ``turns`` each turn's."""
+    mine = [cuda_ms(fn, reps, prefill=True)]
+    out = []
+    for b in baselines:
+        with b.active(K):
+            b0 = cuda_ms(fn, reps, prefill=True)
+        mine += [cuda_ms(fn, reps, prefill=True),
+                 cuda_ms(fn, reps, prefill=True)]
+        with b.active(K):
+            b1 = cuda_ms(fn, reps, prefill=True)
+        out.append((b.name, (b0 + b1) / 2, (b0, b1)))
+    if baselines:
+        mine = mine[1:]
+    return [("this", sum(mine) / len(mine), tuple(mine))] + out
+
+
+def turns_line(times):
+    """The kernel's time beside each baseline's, every turn shown (the
+    call's own spread)."""
+    _, ms, turns = times[0]
+    line = (f"kernel {ms:.4f} ms device time (mean of 20 calls, queue "
+            f"pre-filled; turns {', '.join(f'{x:.4f}' for x in turns)})")
+    for name, bms, bturns in times[1:]:
+        line += (f"; {name}'s {bms:.4f} ms (turns "
+                 f"{', '.join(f'{x:.4f}' for x in bturns)}; x{bms / ms:.2f} "
+                 f"of this kernel's time)")
+    return line
+
+
+def baseline_bits(K, baselines, fn, mine, lanes, cap=None):
+    """This checkout's trace results ``mine`` against each baseline's on the
+    same call ``fn``: (ok, message).  t and material equal to the bit on
+    ``lanes``; the normal and props too (closest mode) but for the lanes
+    where two candidates of one material tie in t (EXIT_TIE_FRAC of hit
+    lanes).  ``cap`` (the capped shadow exit): equal where the baseline's
+    t is within it, and beyond it both beyond it."""
+    ok, msgs = True, []
+    for b in baselines:
+        with b.active(K):
+            ref = fn()
+        same = lanes if cap is None else lanes & (ref[0] <= cap)
+        bok = (bool((mine[0] == ref[0])[same].all())
+               and bool((mine[1] == ref[1])[same].all()))
+        if cap is not None:
+            rest = lanes & ~same
+            bok &= bool((mine[0] > cap)[rest].all())
+        ties = 0.0
+        if len(mine) > 2:
+            hit = same & (ref[0] < 5e29)
+            diff = ((mine[2] != ref[2]).any(1) | (mine[3] != ref[3]).any(1))
+            ties = diff[hit].float().mean().item() if hit.any() else 0.0
+            bok &= ties < EXIT_TIE_FRAC
+        ok &= bok
+        msgs.append(f"vs {b.name}'s: t and mat equal to the bit on "
+                    f"{int(same.sum())} lanes"
+                    + (" (within the cap; beyond it beyond)" if cap is not None
+                       else "")
+                    + (f", normal / props differ on {ties:.2e} of hit lanes"
+                       if len(mine) > 2 else "") + f": {bok}")
+    return ok, "; ".join(msgs)
 
 
 # --------------------------------------------------------------------------
@@ -873,8 +969,8 @@ def check_path(torch, K, sd, o, v, live, variants, results, label,
     WALK_ROWS variant is also checked and timed on the first bounce and
     on one tile (the primary batch's densest, re-traced alone: the stack
     loop's tail shape), with the share of pairs that need a walk;
-    ``baseline``: other checkouts' shade kernels (Baseline) timed beside
-    it."""
+    ``baseline``: other checkouts' kernels (Baseline) timed beside it, the
+    trace's results also held to their bits."""
     R, D = o.shape
     aux = torch.full((R,), -1, dtype=torch.int32, device="cuda")
     ok_all = True
@@ -922,7 +1018,11 @@ def check_path(torch, K, sd, o, v, live, variants, results, label,
                 r["max_abs_err"] = err_
                 r["library_ms"] = None   # no one PyTorch call computes it
                 if mode is None:
-                    r["ms"] = cuda_ms(lambda: kern(*args), 20, prefill=True)
+                    times = time_turns(K, lambda: kern(*args), baseline)
+                    r["ms"] = times[0][1]
+                    bok, bmsg = baseline_bits(K, baseline,
+                                              lambda: kern(*args), got, live)
+                    ok_all &= bok
                     r["plain_ms"] = cuda_ms(lambda: K.trace_closest_ref(
                         *args), 3)
                     nbytes = (call_bytes(*args[1:]) + table_bytes(sd)
@@ -932,8 +1032,8 @@ def check_path(torch, K, sd, o, v, live, variants, results, label,
                     ops += float(hit.sum()) * (solve_ops(sd)["sph"]
                                                + solve_ops(sd)["normal"])
                     r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
-                    timing = (f"kernel {r['ms']:.4f} ms device time (mean of "
-                              f"20, queue pre-filled)")
+                    timing = turns_line(times) + (f"; {bmsg}" if baseline
+                                                  else "")
                 else:
                     _, twin = shade_calls(K, mode, kw)
                     times = time_kernel(K, mode, base, carry, kw, baseline)
@@ -1056,14 +1156,16 @@ def compare_walk(a, b, live):
                          live)
 
 
-def check_walks(torch, K, scn, W, H, results, label, name, limit=None):
+def check_walks(torch, K, scn, W, H, results, label, name, limit=None,
+                baseline=()):
     """Kernel ``name`` (trace_any or trace_shadow) against its twin on each
     batch the unfused path launches for the primary hits of a W x H frame
     of ``scn``; with the early exit also the capped shadow exit against
     the full walk (t and material equal where the full walk's winner is
     within limit * (1 + 1e-3) + 0.01, beyond it both beyond it).  The
     first batch is timed, and its numbers go into ``results`` when the
-    kernel has none yet."""
+    kernel has none yet; ``baseline``: other checkouts' trace kernels
+    timed beside it and held to its bits."""
     from ndt_tpu_torch.constants import BIG
     from ndt_tpu_torch.mathnd import fma
 
@@ -1099,7 +1201,14 @@ def check_walks(torch, K, scn, W, H, results, label, name, limit=None):
             continue
         r = dict(results[name]) if "ms" in results[name] else results[name]
         r["max_abs_err"] = err
-        r["ms"] = cuda_ms(lambda: kern(*args), 20, prefill=True)
+        times = time_turns(K, lambda: kern(*args), baseline)
+        r["ms"] = times[0][1]
+        bok, bmsg = baseline_bits(
+            K, baseline, lambda: kern(*args), got,
+            lv if exit_ else torch.ones_like(lv),
+            fma(aux, 1.001, 0.01) if exit_ and name == "trace_shadow"
+            else None)
+        ok &= bok
         r["plain_ms"] = cuda_ms(lambda: twin(*args), 3)
         r["library_ms"] = None   # no one PyTorch call computes it
         t = got[0]
@@ -1115,9 +1224,9 @@ def check_walks(torch, K, scn, W, H, results, label, name, limit=None):
             ops += o.shape[0] * sum(fops[K._gid_family(sd, g)[0]]
                                     for g, _ in sd.inf_gids)
         r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
-        print(f"[kernels] {label} {name} at {o.shape[0]} rays: kernel "
-              f"{r['ms']:.4f} ms device time (mean of 20, queue "
-              f"pre-filled), twin {r['plain_ms']:.3f} ms (mean of 3), bound "
+        print(f"[kernels] {label} {name} at {o.shape[0]} rays: "
+              f"{turns_line(times)}{f'; {bmsg}' if baseline else ''}, twin "
+              f"{r['plain_ms']:.3f} ms (mean of 3), bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes / 1e6:.2f}"
               f" MB, {ops / 1e9:.3f} GFLOP)")
         if exit_:
@@ -1156,7 +1265,7 @@ def phase_kernels(torch, K, results, baseline=()):
                                       640, 480),
                      {"trace_early_exit": None, "shade (escalate)":
                       "escalate", "shade (local)": "local"}, results,
-                     "random150 5-D 640x480")
+                     "random150 5-D 640x480", baseline)
     ee_min = K.EE_MIN_OBJECTS
     for dim in (4, 5):
         sd, o, v, live = facet_batch(dim)
@@ -1171,21 +1280,179 @@ def phase_kernels(torch, K, results, baseline=()):
         K.EE_MIN_OBJECTS = ee_min
     # the unfused path's walks and the area lights' shade kind
     ok &= check_walks(torch, K, balls_scene(), 1920, 1080, results,
-                      "balls 1080p", "trace_any", limit=1 << 20)
+                      "balls 1080p", "trace_any", limit=1 << 20,
+                      baseline=baseline)
     ok &= check_walks(torch, K, scene("test", 4), 640, 480, results,
-                      "test 4-D 640x480", "trace_shadow")
+                      "test 4-D 640x480", "trace_shadow",
+                      baseline=baseline)
     ok &= check_walks(torch, K, scene("infinite4d", 4), 240, 180, results,
                       "infinite4d 240x180", "trace_any")
     ok &= check_walks(torch, K, scene("infinite4d", 4), 240, 180, results,
                       "infinite4d 240x180", "trace_shadow")
     ok &= check_walks(torch, K, quiet(scene, "random", 5, config="150"),
                       640, 480, results, "random150 5-D 640x480",
-                      "trace_shadow")
+                      "trace_shadow", baseline=baseline)
     ok &= check_path(torch, K, *primary_rays(area_scene(), 640, 480),
                      {"trace": None, "shade_area": "carry",
                       "shade (local)": "local",
                       "shade (escalate)": "escalate"}, results,
                      "area 640x480", baseline)
+    return ok
+
+
+# --------------------------------------------------------------------------
+# the trace launches of one frame, one by one
+
+
+def time_launches(K, fns, baselines):
+    """[(label, [ms per call])]: the device time of each call in ``fns``,
+    timed alone (CUDA events between consecutive calls, the queue
+    pre-filled by a spin kernel), with this checkout's kernels and each
+    baseline's in turns (baseline, this, this, baseline; without a baseline
+    three passes of this one's); each time the mean of its label's passes,
+    after one untimed pass per label."""
+    import torch
+
+    def one_pass():
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(fns) + 1)]
+        torch.cuda._sleep(int(max(2e8, 4e5 * len(fns))))
+        for e, f in zip(ev, fns):
+            e.record()
+            f()
+        ev[-1].record()
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+    def mean(passes):
+        return [sum(x) / len(passes) for x in zip(*passes)]
+
+    one_pass()
+    mine, out = [], []
+    for b in baselines:
+        with b.active(K):
+            one_pass()
+            b0 = one_pass()
+        mine += [one_pass(), one_pass()]
+        with b.active(K):
+            b1 = one_pass()
+        out.append((b.name, mean([b0, b1])))
+    if not baselines:
+        mine = [one_pass() for _ in range(3)]
+    return [("this", mean(mine))] + out
+
+
+def solved_per_lane(K, sd, counts, reach, t):
+    """[R] float: per lane the candidates of its tile's reach-sorted list
+    whose reach is within its final t (every walk with the early exit
+    solves them; a miss lane's whole list)."""
+    import torch
+
+    tt = t.reshape(-1, K.RT).contiguous()
+    n = torch.zeros_like(tt, dtype=torch.float64)
+    for _, col, off, sz in K._families(sd):
+        r = reach[:, off:off + sz].contiguous()
+        k = torch.searchsorted(r, tt, right=True)
+        n += torch.minimum(k, counts[:, col:col + 1].long()).double()
+    return n.reshape(-1)
+
+
+def census(torch, K, scn, opts, name, label, baselines=()):
+    """Every ``name`` launch (trace_closest or trace_shadow) of one frame of
+    ``scn``, captured where render/trace.py calls the wrapper, re-run: per
+    launch R, the lanes it walks for (live lanes with a live mask, else the
+    real lanes before padding), the most in one tile, the tile lists' mean
+    and largest length (counts summed over the families), with the exit the
+    mean candidates within each live lane's final t (solved_per_lane), the
+    threads per ray G the kernel walks it with (kernels.walk_group), and
+    its device time alone beside each
+    baseline's (time_launches); list lengths over the tiles with lanes.
+    Each launch is held to its twin (the f32
+    trace bar on the lanes walked) and to each baseline's bits
+    (baseline_bits: every lane without the exit, the live lanes with it).
+    Returns ok."""
+    from ndt_tpu_torch.render import engine, shade
+    from ndt_tpu_torch.render import trace as T
+
+    with captured(T, name) as calls, \
+            captured(shade, "shadow_trace") as sh_calls:
+        quiet(engine.render_frame, scn, opts)
+        torch.cuda.synchronize()
+    calls = [a for a, _ in calls]
+    real = ([a[1].shape[0] for a, _ in sh_calls] if name == "trace_shadow"
+            else [None] * len(calls))
+    kern = getattr(K, name)
+    twin = getattr(K, name + "_ref")
+    fns = [(lambda a=a: kern(*a)) for a in calls]
+    times = time_launches(K, fns, baselines)
+    ok = bool(calls) and len(real) == len(calls)
+    totals = [0.0] * len(times)
+    sizes = collections.Counter()
+    for i, args in enumerate(calls):
+        sd, o, counts = args[0], args[1], args[5]
+        R = o.shape[0]
+        reach, live = (tuple(args[6:8]) + (None, None))[:2]
+        got, ref = kern(*args), twin(*args)
+        lanes = (live if live is not None
+                 else torch.arange(R, device=o.device) < (real[i] or R))
+        tok, _, tmsg = compare_trace((got[0], got[1], None, None),
+                                     (ref[0], ref[1], None, None), lanes)
+        bok, bmsg = baseline_bits(K, baselines, lambda: kern(*args), got,
+                                  lanes if reach is not None
+                                  else torch.ones_like(lanes))
+        ok &= tok and bok
+        n_lanes = int(lanes.sum())
+        per_tile = lanes.reshape(-1, K.RT).sum(1)
+        lists = counts.sum(1).double()[per_tile > 0]
+        if not lists.numel():
+            lists = torch.zeros(1, dtype=torch.float64)
+        G = K.walk_group(R, None if live is None else n_lanes,
+                         K.group_cap(sd))
+        extra = ""
+        if reach is not None:
+            sol = solved_per_lane(K, sd, counts, reach, ref[0])[lanes]
+            extra = (f", candidates within the final t per live lane mean "
+                     f"{float(sol.mean()) if n_lanes else 0.0:.1f}")
+        for j, (_, ms) in enumerate(times):
+            totals[j] += ms[i]
+        sizes[R] += 1
+        print(f"[census] {label} {name} #{i}: R={R}, "
+              f"{'live' if live is not None else 'real'} lanes {n_lanes} "
+              f"(most in a tile {int(per_tile.max())}), lists mean "
+              f"{float(lists.mean()):.1f} max {int(lists.max())}{extra}, G "
+              f"{G}; "
+              + "; ".join(f"{lb} {ms[i]:.4f} ms" for lb, ms in times)
+              + f"; twin bar: {tok}" + (f"; {bmsg}" if baselines else ""))
+    print(f"[census] {label}: {len(calls)} {name} launches, by R "
+          f"{dict(sorted(sizes.items()))}; summed device time per frame "
+          + "; ".join(f"{lb} {tot:.4f} ms" for (lb, _), tot in
+                      zip(times, totals))
+          + "".join(f" (x{tot / totals[0]:.2f} of this one's)"
+                    for tot in totals[1:])
+          + f" -> {'PASS' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_census(torch, K, baselines=()):
+    """The trace launches of one 640x480 frame each, one by one (census):
+    random150's fused frame (trace_closest with the early exit, rows 1e)
+    and the test scene's unfused frame (trace_shadow, row 1d), then the
+    stack loops' closest hits of the test scene's and anim6d's fused
+    frames (rows 1b-f, 1b-q at their stack tails' sizes)."""
+    from ndt_tpu_torch.render.engine import RenderOptions
+
+    opts = RenderOptions(width=640, height=480)
+    ok = census(torch, K, quiet(scene, "random", 5, config="150"), opts,
+                "trace_closest", "random150 5-D f0 640x480 fused",
+                baselines)
+    with branch(False):
+        ok &= census(torch, K, scene("test", 4), opts, "trace_shadow",
+                     "test 4-D f0 640x480 unfused", baselines)
+    ok &= census(torch, K, scene("test", 4), opts, "trace_closest",
+                 "test 4-D f0 640x480 fused", baselines)
+    ok &= census(torch, K, scene("anim6d", 6, 1, 4), opts, "trace_closest",
+                 "anim6d 6-D f1 640x480 fused", baselines)
     return ok
 
 
@@ -1687,6 +1954,7 @@ def main(argv=None):
     ok = True
     phases = (("kernels", lambda: phase_kernels(torch, K, results,
                                                 baseline)),
+              ("census", lambda: phase_census(torch, K, baseline)),
               ("golden", lambda: phase_golden(torch, K, card, results)),
               ("frames", lambda: phase_frames(torch, K, card, results,
                                               baseline)))

@@ -55,6 +55,9 @@ struct NdtTables {
   int b_hf;            // gate boxes per hfacet; 0 = none gated
   int n_inf;
   int dim;
+  // not a table: the per-launch scratch of a trace walk with a live mask
+  // ([1 + R] int32, trace_closest.cu compact_live); null otherwise
+  int* scratch;
 };
 
 namespace ndt {

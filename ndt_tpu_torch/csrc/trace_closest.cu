@@ -23,41 +23,71 @@
 // Built once per D (-DNDT_DIM, kernels/build.py) with an instance for each
 // quadric axis count A (families.cuh dispatch_a) and mode.
 //
-// Semantics kept exactly: candidates run in list order, family by family
-// (spheres, planes, quadrics, facets, hfacets), a strict '<' keeps the
-// earlier candidate on a tie, candidates of the ray's excluded material
-// (aux, closest and any) are skipped, and the winner's 8 material
-// properties are props[mat] (zeros on a miss), which is what the TPU
-// kernel's per-candidate select yields since the winner is always on the
-// list.
+// Semantics kept exactly: the winner is the first candidate of least t in
+// list order, family by family (spheres, planes, quadrics, facets,
+// hfacets) -- a strict '<' keeps the earlier candidate on a tie, a NaN or
+// BIG t never wins --, candidates of the ray's excluded material (aux,
+// closest and any) are skipped, and the winner's 8 material properties are
+// props[mat] (zeros on a miss), which is what the TPU kernel's
+// per-candidate select yields since the winner is always on the list.
 //
 // The early exit: with reach (the cull's lower bound on any hit distance
-// of each listed candidate, each family's list sorted by it), a lane stops
+// of each listed candidate, each family's list sorted by it), a ray stops
 // walking a family at the first candidate whose reach exceeds its best t,
-// and a dead lane (live false) walks nothing.  A candidate past that point
-// can only give t >= reach > best, so every live lane's winner is the full
-// walk's.  The TPU stops a whole tile at the largest best t of its live
-// lanes; stopping each lane on its own is a finer grain of the same test:
-// a warp runs until its last lane stops.  In shadow mode the lane's best t
-// is capped at limit * (1 + 1e-3) + 0.01 (L833): a winner beyond the cap
-// cannot pass the same-point test downstream (ndt.c:217-228), so a lane
-// whose best lies beyond it may stop with another such winner, never with
-// one within the cap.
+// and a dead lane (live false) walks nothing and returns a miss.  A
+// candidate past that point can only give t >= reach > best, so every
+// live lane's winner is the full walk's on the same list.  In shadow mode
+// the best t is capped at limit * (1 + 1e-3) + 0.01 (L833): a winner
+// beyond the cap cannot pass the same-point test downstream
+// (ndt.c:217-228), so a lane whose best lies beyond it may stop with
+// another such winner, never with one within the cap.
 //
-// What bounds it on an H100: arithmetic.  A ray costs ~50-120 f32 flops
-// per sphere or plane candidate, ~150-450 per quadric (D = 4..6, A = 1..5)
-// and ~250-400 per facet, against ~90-130 bytes of ray input and output.
-// The scene tables are KBs to a few hundred KB (random150: 3891 leaves).
-// Design: one thread per ray, its components in registers (templated on
-// D, A and the mode, loops unrolled).  A 128-ray block lies inside one
-// 4096-ray cull tile, so every thread of a warp walks the same list: no
-// divergence in the loop trip count short of the exit, and the list,
-// count, reach and table reads are warp-uniform addresses served by the
-// read-only cache (__ldg).  The winner's normal is recomputed once at the
-// end (the same arithmetic, so the same bits) rather than carried through
-// the loop.  The shadow mode's rank pass solves the scene's few infinite
-// leaves (0-2 in the ported scenes) per ray before the walk.  Not yet
-// done: shared-memory staging of the tile's candidate rows.
+// What bounds it on an H100: the latency of one ray's walk.  A candidate
+// costs ~50-120 f32 flops (sphere, plane) to ~250-450 (quadric, facet) in
+// a dependent chain of IEEE divisions and roots, against ~90-130 bytes of
+// ray input and output; the tables are KBs to a few hundred KB (random150:
+// 3891 leaves) and stay in L2.  A launch with hundreds of thousands of
+// rays fills the card and is bound by the walks' instruction rate.  Most
+// launches have far fewer: the chain loop's bounces on random150 keep a
+// few thousand live lanes of 307200 over lists of hundreds of candidates,
+// and the stack loop's tails launch one to three 4096-ray tiles (a few
+// warps per SM).  There one thread walking one list in series sets the
+// launch's time.
+//
+// Design:
+//   * A launch without a live mask whose rays fill the card (FILL: its
+//     resident threads), or whose scene's largest family has one leaf,
+//     keeps one thread per ray in 128-ray blocks inside one 4096-ray cull
+//     tile (trace_kernel): every thread of a warp walks the same list,
+//     whose reads are warp-uniform addresses served by the read-only
+//     cache (__ldg).
+//   * Every other launch spreads each ray's walk over a group of G threads
+//     of one warp (trace_group_kernel, G a power of two up to 32).  The
+//     group takes G consecutive candidates of a family's list per round;
+//     with the exit, a round starts only while its first candidate's
+//     reach is within the group's best t (capped in shadow mode), and
+//     after each round a butterfly of shuffles takes the group's best as
+//     the least (t, list position), so the earlier candidate still wins a
+//     tie; without the exit one such reduction ends the walk.  In shadow
+//     mode the group splits the first-rank pass over the infinite leaves
+//     and takes the least rank.  The group's first thread recomputes the
+//     winner's normal (the same solve again, so the same bits) and writes
+//     the outputs.  Each candidate's t comes from the same arithmetic
+//     whichever thread solves it, so the results are the serial walk's to
+//     the bit (with the capped exit: within the cap too).
+//   * G = group_size(n, cap) without any host synchronisation: the largest
+//     power of two with n * G <= FILL, n the launch's rays or live lanes,
+//     and no wider than the scene's largest family (group_cap): a round
+//     walks one family, so on a scene of a few leaves per family (the
+//     test scene's four, one per family) groups only add threads, and its
+//     stack tails keep the serial walk.  Without a live mask the host
+//     picks G from R.  With one (the early exit), a prologue
+//     (compact_live, one block per tile) gathers the live lanes by ballot
+//     and prefix into a scratch index with their number and writes the
+//     dead lanes' misses; the walk, on a grid of 2 FILL threads, reads
+//     that number, picks G and loops over the live lanes' groups.  So a
+//     bounce with a few hundred live lanes walks each over a whole warp,
+//     and a full primary batch keeps one thread per ray.
 #include "families.cuh"
 
 #ifndef NDT_DIM
@@ -70,17 +100,45 @@ using namespace ndt;
 
 enum TraceMode { CLOSEST = 0, ANY = 1, SHADOW = 2 };
 
+// threads the card runs at once: the H100 SXM's 132 SMs x 1024, eight
+// 128-thread blocks of a 64-register instance per SM (the D = 5, A = 4
+// walks hold five); ndt_tpu_torch.render.kernels.FILL
+constexpr int FILL = 132 * 1024;
+// the widest group: one warp
+constexpr int G_MAX = 32;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NO_POS = 0x7fffffff;   // list position of "no winner"
+
+// the largest power of two G <= cap with n * G <= FILL (1 from n > FILL /
+// 2 on): the threads per ray for n rays (kernels.walk_group)
+__host__ __device__ __forceinline__ int group_size(long long n, int cap) {
+  int g = 1;
+  while (g < cap && n * g * 2 <= FILL) g *= 2;
+  return g;
+}
+
+// the widest group that can help: a round walks one family, so no wider
+// than the largest family (a power of two, at most G_MAX)
+int group_cap(const NdtTables& tb) {
+  int n = tb.n_sph;
+  for (const int m : {tb.n_pln, tb.n_quad, tb.n_fct, tb.n_hf})
+    n = m > n ? m : n;
+  int cap = 1;
+  while (cap < G_MAX && cap * 2 <= n) cap *= 2;
+  return cap;
+}
+
+// The one-thread-per-ray walk, for launches without a live mask that take
+// one thread per ray (group_size 1): the whole list of the ray's tile.
 template <int D, int A, int MODE>
 __global__ void __launch_bounds__(THREADS)
 trace_kernel(NdtTables tb, const float* __restrict__ o,
              const float* __restrict__ v, const int* __restrict__ excl_mat,
              const float* __restrict__ limit,
              const int* __restrict__ lists, const int* __restrict__ counts,
-             const float* __restrict__ reach,
-             const unsigned char* __restrict__ live, int n_list,
-             const float* __restrict__ props, float* __restrict__ t_out,
-             int* __restrict__ m_out, float* __restrict__ n_out,
-             float* __restrict__ p_out, int R) {
+             int n_list, const float* __restrict__ props,
+             float* __restrict__ t_out, int* __restrict__ m_out,
+             float* __restrict__ n_out, float* __restrict__ p_out, int R) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const int tile = r / RT;
@@ -93,23 +151,15 @@ trace_kernel(NdtTables tb, const float* __restrict__ o,
   }
   const int* lst = lists + (size_t)tile * n_list;
   const int* cnt = counts + (size_t)tile * N_FAMS;
-  // early exit: a dead lane's best t counts as -1, below every reach
-  const float* rch = reach ? reach + (size_t)tile * n_list : nullptr;
-  const bool lv = live ? live[r] != 0 : true;
 
   int excl = -1, first_rank = NOTINF;
-  float cap = BIG;
   if (MODE == SHADOW) {
     const float lim = limit[r];
-    cap = fma_(lim, 1.001f, 0.01f);
-    // the first-rank pass over every infinite leaf (a dead lane with the
-    // exit walks nothing, so it needs none)
-    if (!rch || lv) {
-      for (int i = 0; i < tb.n_inf; ++i) {
-        const float t_e = eval_gid<D, A>(tb, __ldg(tb.inf + 2 * i), ro, rv);
-        if (t_e < lim && t_e < BIG * 0.5f)
-          first_rank = min(first_rank, __ldg(tb.inf + 2 * i + 1));
-      }
+    // the first-rank pass over every infinite leaf
+    for (int i = 0; i < tb.n_inf; ++i) {
+      const float t_e = eval_gid<D, A>(tb, __ldg(tb.inf + 2 * i), ro, rv);
+      if (t_e < lim && t_e < BIG * 0.5f)
+        first_rank = min(first_rank, __ldg(tb.inf + 2 * i + 1));
     }
   } else {
     excl = excl_mat[r];
@@ -122,9 +172,6 @@ trace_kernel(NdtTables tb, const float* __restrict__ o,
   for (int f = 0; f < N_FAMS; ++f) {
     const int c = __ldg(cnt + f);
     for (int k = 0; k < c; ++k) {
-      if (rch && !(__ldg(rch + gid0 + k) <= (lv ? (t1 < cap ? t1 : cap)
-                                                 : -1.f)))
-        break;
       const int gid = __ldg(lst + gid0 + k);
       if (MODE == SHADOW) {
         const int rank = __ldg(tb.rank + gid);
@@ -156,19 +203,251 @@ trace_kernel(NdtTables tb, const float* __restrict__ o,
         m1 >= 0 ? __ldg(props + m1 * N_PROPS + j) : 0.f;
 }
 
+// Per-launch scratch of a walk with a live mask (NdtTables.scratch,
+// [1 + R] int32): [0] the launch's live lanes, then the ray index of each,
+// a tile's lanes consecutive and ascending.  One block per tile: the
+// tile's live bits by ballot (warp w reads lanes 1024w .. 1024w+1023, 32
+// coalesced bytes a step, and its lane i keeps the ballot of step i: the
+// word of lanes 32 threadIdx.x ..), their prefix over the block, then one
+// atomicAdd places the tile's lanes.  The dead lanes get their misses here.
+template <int D, bool NORMAL>
+__global__ void __launch_bounds__(THREADS)
+compact_live(const unsigned char* __restrict__ live, int* __restrict__ scratch,
+             float* __restrict__ t_out, int* __restrict__ m_out,
+             float* __restrict__ n_out, float* __restrict__ p_out) {
+  static_assert(THREADS == RT / 32, "one 32-lane word per thread");
+  __shared__ unsigned s_bits[THREADS];
+  __shared__ int s_pre[THREADS];
+  __shared__ int s_warp[THREADS / 32];
+  __shared__ int s_base;
+  const int tile = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const unsigned char* lt =
+      live + (size_t)tile * RT + (threadIdx.x >> 5) * 1024 + lane;
+  unsigned char f[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) f[i] = lt[i * 32];
+  unsigned bits = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const unsigned m = __ballot_sync(FULL, f[i] != 0);
+    if (lane == i) bits = m;
+  }
+  const int n = __popc(bits);
+  int incl = n;   // inclusive prefix over the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int x = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += x;
+  }
+  if (lane == 31) s_warp[threadIdx.x >> 5] = incl;
+  s_bits[threadIdx.x] = bits;
+  __syncthreads();
+  int before = incl - n, count = 0;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) {
+    if (w < (threadIdx.x >> 5)) before += s_warp[w];
+    count += s_warp[w];
+  }
+  s_pre[threadIdx.x] = before;
+  if (threadIdx.x == 0) s_base = count ? atomicAdd(scratch, count) : 0;
+  __syncthreads();
+  // lane k's rank among the live lanes: its word's prefix and the live
+  // bits below it; consecutive threads, consecutive lanes
+  for (int k = threadIdx.x; k < RT; k += THREADS) {
+    const unsigned w = s_bits[k >> 5], below = (1u << (k & 31)) - 1;
+    const size_t r = (size_t)tile * RT + k;
+    if ((w >> (k & 31)) & 1u) {
+      scratch[1 + s_base + s_pre[k >> 5] + __popc(w & below)] = (int)r;
+      continue;
+    }
+    t_out[r] = BIG;
+    m_out[r] = -1;
+    if (NORMAL) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) n_out[r * D + d] = 0.f;
+#pragma unroll
+      for (int j = 0; j < N_PROPS; ++j) p_out[r * N_PROPS + j] = 0.f;
+    }
+  }
+}
+
+// (t, p) <- the least (t, p) of the group, by t, then list position p: the
+// earlier candidate of a tie.  t is never NaN here (a NaN never becomes a
+// best), and every thread of the group ends with the same pair.
+__device__ __forceinline__ void group_min(float& t, int& p, int G,
+                                          unsigned gmask) {
+  for (int off = G >> 1; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(gmask, t, off);
+    const int op = __shfl_xor_sync(gmask, p, off);
+    if (ot < t || (ot == t && op < p)) {
+      t = ot;
+      p = op;
+    }
+  }
+}
+
+// Ray r's walk by its group: thread j of G (mask gmask) takes candidates
+// j, j + G, ... of each family's list, in rounds of G.
+template <int D, int A, int MODE>
+__device__ __forceinline__ void group_walk(
+    const NdtTables& tb, const float* __restrict__ o,
+    const float* __restrict__ v, const int* __restrict__ excl_mat,
+    const float* __restrict__ limit, const int* __restrict__ lists,
+    const int* __restrict__ counts, const float* __restrict__ reach,
+    int n_list, const float* __restrict__ props, float* __restrict__ t_out,
+    int* __restrict__ m_out, float* __restrict__ n_out,
+    float* __restrict__ p_out, int r, int j, int G, unsigned gmask) {
+  const int tile = r / RT;
+  float ro[D], rv[D], nrm[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    ro[d] = o[(size_t)r * D + d];
+    rv[d] = v[(size_t)r * D + d];
+    nrm[d] = 0.f;
+  }
+  const int* lst = lists + (size_t)tile * n_list;
+  const int* cnt = counts + (size_t)tile * N_FAMS;
+  const float* rch = reach ? reach + (size_t)tile * n_list : nullptr;
+
+  int excl = -1, first_rank = NOTINF;
+  float cap = BIG;
+  if (MODE == SHADOW) {
+    const float lim = limit[r];
+    cap = fma_(lim, 1.001f, 0.01f);
+    // the first-rank pass, the infinite leaves split over the group
+    for (int i = j; i < tb.n_inf; i += G) {
+      const float t_e = eval_gid<D, A>(tb, __ldg(tb.inf + 2 * i), ro, rv);
+      if (t_e < lim && t_e < BIG * 0.5f)
+        first_rank = min(first_rank, __ldg(tb.inf + 2 * i + 1));
+    }
+    for (int off = G >> 1; off > 0; off >>= 1)
+      first_rank = min(first_rank, __shfl_xor_sync(gmask, first_rank, off));
+  } else {
+    excl = excl_mat[r];
+  }
+
+  // (t1, p1): the thread's best candidate, the group's after a reduction;
+  // p1 its position in the tile's list (family offset + index)
+  float t1 = BIG;
+  int p1 = NO_POS;
+  int gid0 = 0;
+#pragma unroll
+  for (int f = 0; f < N_FAMS; ++f) {
+    const int c = __ldg(cnt + f);
+    for (int k0 = 0; k0 < c; k0 += G) {
+      const int k = k0 + j;
+      const int gid = k < c ? __ldg(lst + gid0 + k) : 0;
+      bool take = k < c;
+      if (rch) {
+        // the exit: a round starts only while its first candidate's
+        // reach is within the group's best t (capped: the shadow mode's
+        // cap, BIG otherwise)
+        const float thr = t1 < cap ? t1 : cap;
+        if (!(__ldg(rch + gid0 + k0) <= thr)) break;
+        take = take && __ldg(rch + gid0 + k) <= thr;
+      }
+      if (MODE == SHADOW && take) {
+        const int rank = __ldg(tb.rank + gid);
+        take = !(rank < NOTINF && rank > first_rank);
+      }
+      if (take) {
+        float t = eval_fam<D, A, false>(tb, f, gid - gid0, ro, rv, nrm);
+        if (MODE != SHADOW && __ldg(tb.mat + gid) == excl) t = BIG;
+        if (t < t1) {
+          t1 = t;
+          p1 = gid0 + k;
+        }
+      }
+      if (rch) group_min(t1, p1, G, gmask);
+    }
+    gid0 += fam_size(tb, f);
+  }
+  if (!rch) group_min(t1, p1, G, gmask);
+  if (j) return;
+
+  int m1 = -1, wfam = -1, wrow = 0;
+  if (p1 != NO_POS) {
+    const int gid = __ldg(lst + p1);
+    m1 = __ldg(tb.mat + gid);
+    int off = 0;
+    wfam = 0;
+    while (p1 >= off + fam_size(tb, wfam)) off += fam_size(tb, wfam++);
+    wrow = gid - off;
+  }
+  t_out[r] = t1;
+  m_out[r] = m1;
+  if (MODE != CLOSEST) return;
+  // the winner's normal: the same solve again, with the normal this time
+  if (wfam >= 0) eval_fam<D, A, true>(tb, wfam, wrow, ro, rv, nrm);
+#pragma unroll
+  for (int d = 0; d < D; ++d) n_out[(size_t)r * D + d] = nrm[d];
+#pragma unroll
+  for (int i = 0; i < N_PROPS; ++i)
+    p_out[(size_t)r * N_PROPS + i] =
+        m1 >= 0 ? __ldg(props + m1 * N_PROPS + i) : 0.f;
+}
+
+// Every ray's walk by a group of G threads (group_walk).  Without a live
+// mask (g > 0): G = g and the R rays in order, R * g threads.  With one
+// (g = 0): the live lanes compact_live put in tb.scratch, G =
+// group_size(their number, cap), over a grid of 2 FILL threads that loops
+// while lanes are left.
+template <int D, int A, int MODE>
+__global__ void __launch_bounds__(THREADS)
+trace_group_kernel(NdtTables tb, const float* __restrict__ o,
+                   const float* __restrict__ v,
+                   const int* __restrict__ excl_mat,
+                   const float* __restrict__ limit,
+                   const int* __restrict__ lists,
+                   const int* __restrict__ counts,
+                   const float* __restrict__ reach, int n_list,
+                   const float* __restrict__ props, float* __restrict__ t_out,
+                   int* __restrict__ m_out, float* __restrict__ n_out,
+                   float* __restrict__ p_out, int R, int g, int cap) {
+  const int* idx = g ? nullptr : tb.scratch + 1;
+  const int total = g ? R : *tb.scratch;
+  const int G = g ? g : group_size(total, cap);
+  const int lane = threadIdx.x & 31;
+  const unsigned gmask =
+      G == 32 ? FULL : ((1u << G) - 1) << (lane & ~(G - 1));
+  const int j = threadIdx.x & (G - 1);
+  for (int u = blockIdx.x * THREADS + threadIdx.x;; u += gridDim.x * THREADS) {
+    const int slot = u / G;
+    if (slot >= total) return;
+    group_walk<D, A, MODE>(tb, o, v, excl_mat, limit, lists, counts, reach,
+                           n_list, props, t_out, m_out, n_out, p_out,
+                           idx ? idx[slot] : slot, j, G, gmask);
+  }
+}
+
 template <int MODE>
 int launch(const NdtTables* tb, const float* o, const float* v,
            const int* excl, const float* limit, const int* lists,
            const int* counts, const float* reach, const unsigned char* live,
            int n_list, const float* props, float* t_out, int* m_out,
            float* n_out, float* p_out, int R, void* stream) {
-  if (R % RT || tb->dim != NDT_DIM) return -1;
+  if (R % RT || tb->dim != NDT_DIM || (live && !tb->scratch)) return -1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cap = group_cap(*tb);
+  const int g = group_size(R, cap);
+  if (live) {
+    const int err = (int)cudaMemsetAsync(tb->scratch, 0, sizeof(int), s);
+    if (err) return err;
+    compact_live<NDT_DIM, MODE == CLOSEST><<<R / RT, THREADS, 0, s>>>(
+        live, tb->scratch, t_out, m_out, n_out, p_out);
+  }
   return dispatch_a<NDT_DIM>(tb->a_quad, [&](auto a) {
-    trace_kernel<NDT_DIM, decltype(a)::value, MODE>
-        <<<R / THREADS, THREADS, 0, s>>>(*tb, o, v, excl, limit, lists,
-                                         counts, reach, live, n_list, props,
-                                         t_out, m_out, n_out, p_out, R);
+    constexpr int A = decltype(a)::value;
+    if (!live && g == 1)
+      trace_kernel<NDT_DIM, A, MODE><<<R / THREADS, THREADS, 0, s>>>(
+          *tb, o, v, excl, limit, lists, counts, n_list, props, t_out, m_out,
+          n_out, p_out, R);
+    else
+      trace_group_kernel<NDT_DIM, A, MODE>
+          <<<(live ? 2 * FILL : R * g) / THREADS, THREADS, 0, s>>>(
+              *tb, o, v, excl, limit, lists, counts, reach, n_list, props,
+              t_out, m_out, n_out, p_out, R, live ? 0 : g, cap);
     return (int)cudaGetLastError();
   });
 }

@@ -40,6 +40,10 @@ _I = ctypes.c_int
 # ndt_shade_d<D>'s C signature (csrc/shade.cu)
 SHADE_ARGTYPES = ([_P] * 8 + [ctypes.c_char_p, _I] + [_P] * 3 + [_I] * 4
                   + [_P] * 12 + [_I, _P])
+# ndt_trace_closest_d<D>'s, and ndt_trace_any_d<D>'s and
+# ndt_trace_shadow_d<D>'s (csrc/trace_closest.cu)
+CLOSEST_ARGTYPES = [_P] * 8 + [_I] + [_P] * 5 + [_I, _P]
+WALK_ARGTYPES = [_P] * 8 + [_I] + [_P] * 2 + [_I, _P]
 
 
 def find_nvcc() -> str:
@@ -125,15 +129,17 @@ def load_library():
     if _lib is None:
         lib = ctypes.CDLL(build()[0])
         for d in DIMS:
-            fn = getattr(lib, f"ndt_trace_closest_d{d}")
-            fn.argtypes = [_P] * 8 + [_I] + [_P] * 5 + [_I, _P]
-            fn.restype = _I
-            for name in ("ndt_trace_any", "ndt_trace_shadow"):
-                fn = getattr(lib, f"{name}_d{d}")
-                fn.argtypes = [_P] * 8 + [_I] + [_P] * 2 + [_I, _P]
-                fn.restype = _I
-            fn = getattr(lib, f"ndt_shade_d{d}")
-            fn.argtypes = SHADE_ARGTYPES
-            fn.restype = _I
+            bind(lib, d)
         _lib = lib
     return _lib
+
+
+def bind(lib, d):
+    """Set the C signatures of a kernel library's D = d entry points."""
+    for name, argtypes in (("ndt_trace_closest", CLOSEST_ARGTYPES),
+                           ("ndt_trace_any", WALK_ARGTYPES),
+                           ("ndt_trace_shadow", WALK_ARGTYPES),
+                           ("ndt_shade", SHADE_ARGTYPES)):
+        fn = getattr(lib, f"{name}_d{d}")
+        fn.argtypes = argtypes
+        fn.restype = _I

@@ -135,6 +135,38 @@ def use_early_exit(scn: DeviceScene) -> bool:
     return scn.n_total >= EE_MIN_OBJECTS
 
 
+# The trace kernel spreads a ray's walk over a group of G threads when a
+# launch has too few rays to fill the card (csrc/trace_closest.cu FILL,
+# G_MAX): FILL is the threads the H100 runs at once, 132 SMs x 1024.
+FILL = 132 * 1024
+G_MAX = 32
+
+
+def group_cap(scn: DeviceScene) -> int:
+    """The widest group that can help on the scene: a round walks one
+    family's candidates, so the largest power of two up to G_MAX within
+    the largest family (csrc/trace_closest.cu group_cap)."""
+    n = max(scn.n_sph, scn.n_pln, scn.n_quad, scn.n_fct, scn.n_hf)
+    cap = 1
+    while cap < G_MAX and cap * 2 <= n:
+        cap *= 2
+    return cap
+
+
+def walk_group(R, n_live=None, cap=G_MAX):
+    """The threads per ray with which the trace kernel walks a launch of R
+    rays (the plain twin of its choice, group_size): the largest power of
+    two G up to ``cap`` (group_cap) with n * G <= FILL, n being R without
+    a live mask (the kernel's host code picks it) or the ``n_live`` live
+    lanes with one (the kernel counts them on the device).  G = 1 is one
+    thread per ray (from n > FILL / 2 on)."""
+    n = R if n_live is None else int(n_live)
+    g = 1
+    while g < cap and n * g * 2 <= FILL:
+        g *= 2
+    return g
+
+
 # --------------------------------------------------------------------------
 # X1: per-tile conservative cull (torch ops)
 
@@ -792,7 +824,8 @@ def trace_closest(scn: DeviceScene, o, v, aux, lists, counts, reach=None,
     m = torch.empty(R, dtype=torch.int32, device=o.device)
     nrm = torch.empty((R, D), dtype=torch.float32, device=o.device)
     props = torch.empty((R, N_PROPS), dtype=torch.float32, device=o.device)
-    tables = _c_tables(scn)
+    scratch = _walk_scratch(live, R)
+    tables = _c_tables(scn, scratch)
     err = fn(ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists),
              _p(counts), _p(reach), _p(live), lists.shape[1], _p(scn.props),
              _p(t), _p(m), _p(nrm), _p(props), R, _stream())
@@ -854,7 +887,8 @@ def _launch_walk(name, scn, o, v, aux, lists, counts, reach, live):
     fn = _entry(o, f"ndt_{name}", scn.dim)
     t = torch.empty(R, dtype=torch.float32, device=o.device)
     m = torch.empty(R, dtype=torch.int32, device=o.device)
-    tables = _c_tables(scn)
+    scratch = _walk_scratch(live, R)
+    tables = _c_tables(scn, scratch)
     err = fn(ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists),
              _p(counts), _p(reach), _p(live), lists.shape[1], _p(t), _p(m),
              R, _stream())
@@ -1257,10 +1291,12 @@ _TABLE_INTS = ("n_sph", "n_pln", "n_quad", "n_fct", "n_hf", "a_quad",
 
 
 class NdtTables(ctypes.Structure):
-    """Mirror of ``struct NdtTables`` in csrc/families.cuh."""
+    """Mirror of ``struct NdtTables`` in csrc/families.cuh; its last field,
+    ``scratch``, is the trace walk's per-launch scratch, not a table."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in _TABLE_PTRS] + [
-        (name, ctypes.c_int) for name in _TABLE_INTS]
+        (name, ctypes.c_int) for name in _TABLE_INTS] + [
+        ("scratch", ctypes.c_void_p)]
 
 
 def _p(x):
@@ -1271,11 +1307,21 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _c_tables(scn: DeviceScene) -> NdtTables:
+def _c_tables(scn: DeviceScene, scratch=None) -> NdtTables:
     return NdtTables(
         *(getattr(scn, k).data_ptr() for k in _TABLE_PTRS),
         *(len(scn.inf_gids) if k == "n_inf" else getattr(scn, k)
-          for k in _TABLE_INTS))
+          for k in _TABLE_INTS),
+        None if scratch is None else scratch.data_ptr())
+
+
+def _walk_scratch(live, R):
+    """The trace kernel's scratch for a walk with a live mask: [1 + R] int32
+    (the live lanes' number and index, csrc/trace_closest.cu compact_live),
+    or None without a mask."""
+    if live is None:
+        return None
+    return torch.empty(1 + R, dtype=torch.int32, device=live.device)
 
 
 def _raise_on(err, name):

@@ -211,6 +211,26 @@ def seeded_scene(dim, port=False, lit=False, flat=0, facets=False):
     return scn
 
 
+def tied_scene(dim, port=False):
+    """seeded_scene(dim, lit=True, facets=True) with a twin of every opaque
+    sphere, facet, hfacet and the hcube: the same geometry under another
+    colour (another material), added after all the originals.  A ray that
+    hits one hits both at the same t, so the earlier candidate in list
+    order (the original) must win the tie."""
+    scn = seeded_scene(dim, port=port, lit=True, facets=True)
+    for o in list(scn.objects):
+        if o.type_name not in ("sphere", "facet", "hfacet", "hcube") \
+                or o.transparent:
+            continue
+        c = scn.add_object(o.type_name, o.name + "_twin")
+        c.pos = [p.copy() for p in o.pos]
+        c.dir = [d.copy() for d in o.dir]
+        c.size, c.flag = list(o.size), list(o.flag)
+        c.set_color(*(1.0 - np.asarray(o.color)))
+        c.reflect = np.array(o.reflect)
+    return scn
+
+
 def seeded_rays(dim, R=4096):
     """(o, v, live) float32 numpy: R rays from around (20, 0, ...) toward
     seeded points of seeded_scene's region, 90% live."""

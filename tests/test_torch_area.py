@@ -104,14 +104,17 @@ def test_area_points_match_jax_sampler(kind):
 
 def _jax_points(jsd, key, R):
     """{light index: [R, D]}: the points the JAX package's apply_lights
-    draws at ``key`` (the key folded with the light's index)."""
+    draws at ``key`` (the key folded with the light's index), jitted as
+    apply_lights runs them: there XLA contracts the sampler's single-use
+    products into the adds that consume them (fma(u, 2, -1), pos + u1 x r
+    + v1 y r as two FMAs).  Run op by op, every product rounds on its own,
+    and about a quarter of the points land an ulp away."""
     import jax
 
     from ndt_tpu.render.shade import _sample_area_light
 
-    return {li: np.asarray(_sample_area_light(lgt, jax.random.fold_in(key,
-                                                                      li),
-                                              (R,)))
+    sample = jax.jit(lambda lgt, k: _sample_area_light(lgt, k, (R,)))
+    return {li: np.asarray(sample(lgt, jax.random.fold_in(key, li)))
             for li, lgt in enumerate(jsd.lights) if int(lgt.kind) in (4, 5)}
 
 
@@ -206,9 +209,10 @@ def test_shade_area_twin_matches_pallas(two_lights, mode):
 def test_apply_lights_area_matches_jax(two_lights, monkeypatch):
     """apply_lights with a DISK and a RECT light (both stacked into one
     shadow_trace launch) on the JAX closest hits of the 64x48 rays, fed
-    the JAX package's sample points: |diff| < 1e-5 on all but <= 0.1% of
-    lanes; the twin's fused local colour on the same points agrees at
-    the f32 shade bar."""
+    the JAX package's sample points: max |diff| < 1e-5 on every hit lane,
+    at PRNGKey(11) and at three keys whose shaded points sit EPSILON from
+    their shadow hits (the same-point test's knife edge); the twin's fused
+    local colour on the same points agrees at the f32 shade bar."""
     import jax
 
     import ndt_tpu_torch.render.shade as shade_mod
@@ -221,16 +225,15 @@ def test_apply_lights_area_matches_jax(two_lights, monkeypatch):
     o, v = c.o[:R], c.v[:R]
     tr = trace(c.scn, t(o), t(v))
     hit = tr.hit.numpy()
-    key = jax.random.PRNGKey(11)
-    ref = jax_apply_lights(c.jsd, o, v, tr, key)
-    points = {li: t(p) for li, p in _jax_points(c.jsd, key, R).items()}
-    got = apply_lights(c.scn, t(o), t(v), tr, tr.hit, area=points).numpy()
-    d = np.abs(got - ref).max(1)[hit]
-    # all but knife-edge lanes within 1e-5: where the shaded point sits
-    # EPSILON from the shadow hit, an ulp between the two packages' f32
-    # sphere solves flips the same-point test (one lane of 3072 here)
     assert hit.mean() > 0.5
-    assert (d > 1e-5).mean() <= 1e-3, np.sort(d)[-5:]
+    for seed in (223, 249, 39, 11):
+        key = jax.random.PRNGKey(seed)
+        ref = jax_apply_lights(c.jsd, o, v, tr, key)
+        points = {li: t(p) for li, p in _jax_points(c.jsd, key, R).items()}
+        got = apply_lights(c.scn, t(o), t(v), tr, tr.hit,
+                           area=points).numpy()
+        d = np.abs(got - ref).max(1)[hit]
+        assert d.max() < 1e-5, (seed, np.sort(d)[-5:])
     # the fused branch's shade twin on the same points
     draws = iter(points[li] for li in sorted(points))
     monkeypatch.setattr(shade_mod, "_sample_area_light",

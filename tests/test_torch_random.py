@@ -246,6 +246,47 @@ def test_random_trace_twin_matches_pallas(random20):
     assert both.mean() > 0.1
 
 
+@pytest.mark.parametrize("kind", ["tile", "warp", "1pct"])
+def test_random_trace_sparse_masks_match_pallas(random20, kind):
+    """The twin's early exit on sparse live masks of the two tiles of
+    random "20" rays -- one lane per tile (its first lane the Pallas walk
+    hits: a miss walks the whole list), one lane per 32 at random, 1% at
+    random -- against the Pallas closest hits of the same rays (the
+    fixture's full walk, interpret mode; forcing the JAX exit on costs
+    minutes of interpret-mode compile on this scene, and the 201-leaf
+    scene of tests/test_torch_unfused.py holds the twin to it): the f32
+    trace bar on the live lanes, normals within 1e-4, equal material
+    properties; dead lanes miss."""
+    from ndt_tpu_torch.render.kernels import (cull_lists, trace_closest,
+                                              use_early_exit)
+
+    c = random20
+    R = c.o.shape[0]
+    rng = np.random.default_rng(len(kind))
+    hit = c.live & (c.hits[0] < 5e29)
+    live = np.zeros(R, bool)
+    if kind == "tile":
+        for k in range(0, R, 4096):
+            live[k + np.nonzero(hit[k:k + 4096])[0][:1]] = True
+    elif kind == "warp":
+        live[np.arange(0, R, 32) + rng.integers(0, 32, R // 32)] = True
+        live &= c.live
+    else:
+        live = c.live & (rng.random(R) < 0.01)
+    assert use_early_exit(c.scn) and hit[live].any()
+    o, v, lv = t(c.o), t(c.v), t(live)
+    aux = torch.full((R,), -1, dtype=torch.int32)
+    got = [x.numpy() for x in trace_closest(
+        c.scn, o, v, aux, *cull_lists(c.scn, o, v, live=lv,
+                                      want_reach=True), lv)]
+    assert_trace_bar(got[:2], c.hits[:2], live)
+    both = (got[0] < 5e29) & (c.hits[0] < 5e29) & live
+    np.testing.assert_allclose(got[2][both], c.hits[2][both], rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_array_equal(got[3][both], c.hits[3][both])
+    assert (got[0][~live] == 1e30).all() and (got[1][~live] == -1).all()
+
+
 def test_random_trace_matches_chunked_pallas(random20, monkeypatch):
     """Row 2's counterpart: the JAX package splits a scene past its SMEM
     budget into chunks and walks them with pallas_trace_grouped, each

@@ -300,6 +300,86 @@ def test_shadow_exit_equals_full_walk_within_cap():
     assert (ee[0].numpy()[hit & ~within] > cap[hit & ~within]).all()
 
 
+def _sparse(lanes, kind, seed):
+    """``lanes`` thinned to one per 4096-ray tile (the tile's first) or to
+    1% of them at random."""
+    if kind == "1pct":
+        return lanes & (np.random.default_rng(seed).random(lanes.shape)
+                        < 0.01)
+    out = np.zeros_like(lanes)
+    for k in range(0, len(lanes), 4096):
+        first = np.nonzero(lanes[k:k + 4096])[0][:1]
+        out[k + first] = True
+    return out
+
+
+@pytest.mark.parametrize("mode", ["closest", "any", "shadow"])
+def test_trace_modes_sparse_masks_match_pallas(pallas_interpret, monkeypatch,
+                                               mode):
+    """Sparse live masks, the early exit forced on in the JAX package's
+    interpret mode (NDT_EE_INTERPRET) on the 201-leaf scene, two tiles of
+    rays: one live lane per tile (its first hit lane: a lane that misses
+    walks its whole list on both sides) and 1% of the lanes (of the live
+    ones, misses included, for closest; of the hit ones, where the shadow
+    rays start, for any and shadow).  closest (trace): the f32 trace bar,
+    normals within 1e-4
+    and equal material properties on the live lanes; any (occlusion_trace)
+    on the shadow rays of those hits: the bar; shadow (shadow_trace): the
+    bar where the JAX t is within limit * (1 + 1e-3) + 0.01, beyond it on
+    both sides elsewhere.  The port's dead lanes miss."""
+    import jax
+    import jax.numpy as jnp
+
+    from ndt_tpu.render import pallas_trace as pt
+    from ndt_tpu.render import trace as trace_mod
+    from ndt_tpu.scene.compile import compile_scene
+    from ndt_tpu_torch.render.trace import trace
+    from ndt_tpu_torch.scene import scene_from_numpy, to_device
+
+    jsd = compile_scene(_dense_scene(), np.float32)
+    scn = to_device(scene_from_numpy(jsd), "cpu")
+    monkeypatch.setattr(pt, "_EE_INTERPRET", True)
+    jax.clear_caches()
+    try:
+        o, v, live = aimed_rays(jsd, [0.0, 2.0, -25.0, 0.0], seed=4,
+                                R=2 * 4096)
+        tt = _port_walk(scn, "any", (o, v), live)[0]
+        any_rays, sh_rays, hit = shadow_rays(jsd, o, v, tt, live)
+        for kind in ("tile", "1pct"):
+            # the closest trace's 1% may miss; the shadow rays start at hits
+            lanes = _sparse(live if mode == "closest" and kind == "1pct"
+                            else hit, kind, seed=len(kind))
+            if mode == "closest":
+                got = trace(scn, t(o), t(v), live=t(lanes))
+                ref = trace_mod.trace(jsd, j32(o), j32(v), need_normal=True,
+                                      live=jnp.asarray(lanes))
+                rt = np.where(np.asarray(ref.hit), np.asarray(ref.t), 1e30)
+                assert_trace_bar((got.t.numpy(), got.mat.numpy()),
+                                 (rt, np.asarray(ref.mat_id)), lanes)
+                both = got.hit.numpy() & (rt < 5e29) & lanes
+                np.testing.assert_allclose(got.normal.numpy()[both],
+                                           np.asarray(ref.normal)[both],
+                                           rtol=1e-4, atol=1e-4)
+                np.testing.assert_array_equal(
+                    got.color.numpy()[both], np.asarray(ref.color)[both])
+                assert not got.hit.numpy()[~lanes].any()
+                continue
+            rays = any_rays if mode == "any" else sh_rays
+            got = _port_walk(scn, mode, rays, lanes)
+            ref = _jax_walk(jsd, mode, rays, lanes)
+            assert not (got[0][~lanes] < 5e29).any()
+            if mode == "any":
+                assert_trace_bar(got, ref, lanes)
+                continue
+            cap = rays[2] * np.float32(1.001) + np.float32(0.01)
+            within = lanes & (ref[0] <= cap)
+            assert within.any()
+            assert_trace_bar(got, ref, within)
+            assert (got[0][lanes & ~within] > cap[lanes & ~within]).all()
+    finally:
+        jax.clear_caches()
+
+
 @pytest.mark.parametrize("name", ["lights3d", "infinite4d"])
 def test_apply_lights_matches_jax(pallas_interpret, name):
     """apply_lights on one closest-hit TraceResult both sides share (the
