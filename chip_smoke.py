@@ -53,6 +53,11 @@ nonzero with no "ok" line):
          capped early exit, also held to the full walk within the cap);
        - shade_area (the shade kernel's 'a' kind): the area scene (a DISK
          and a RECT light) at 640x480, primary and first bounce;
+       - the rest of the scene registry, checked only: hypercube 4-D f10
+         at 640x480 (a cluster of kd-gated orthotope slabs, A = 3; the
+         unfused path's trace_any) and random "600" 5-D at 640x480
+         (10,533 leaves, the budgeted kd gates B = 8, the early exit; the
+         unfused path's trace_shadow), every trace and shade mode;
   3b. the census: every trace launch of one 640x480 frame, captured where
      the main path calls the wrapper and re-run alone -- random150 fused
      (trace_closest with the early exit), the test scene unfused
@@ -80,6 +85,14 @@ nonzero with no "ok" line):
      penumbra (the mean of 24 one-sample 48x36
      frames at seeds 0..23, per DISK and RECT, tests/test_render.py's
      check);
+  4b. the rest of the scene registry on the card against the C goldens,
+     each within the JAX package's own f32 RMSE + 2e-4: hypercube 4-D
+     320x240 f0 in its default config and 'hcube' (rows 60:90 and the full
+     frame), hypercube-points 6-D 160x120, cluster5d 5-D 320x240 (rows
+     80:150 and the full frame), nelder-mead 3-D 200x150 frames 12 and 60,
+     and random "600" 5-D rows 88:91 of 320x240 (held to the reference's
+     f32 RMSE, which is not C-exact there); cluster5d after
+     Scene.cluster(3), and regrouped by k-means, equal to the plain frame;
   5. the main paths, timed (warmed, median of 3 -- anim6d, test 4-D and
      random150 unfused one frame --, host clock around
      torch.cuda.synchronize()), each driven with the launch counters set
@@ -97,7 +110,12 @@ nonzero with no "ok" line):
      the stack loop's tail re-run against its twin and timed; then one
      more frame of
      test 4-D and random150 (fused) and of the three new paths under
-     torch.profiler (tools/profile_frame.py): the device's busy share.
+     torch.profiler (tools/profile_frame.py): the device's busy share;
+     then the bench rows of the rest of the registry at 640x480, fused,
+     each with its busy share: hypercube f10, hypercube 'walls' f10,
+     cluster5d f0 and random "600" f0 (one timed frame), with random600's
+     compile_scene host time (median of 3) and the frame's peak device
+     memory.
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  JAX is never imported.
 
@@ -142,11 +160,22 @@ GOLDEN_RMSE = 1e-3
 PIXEL_TOL, PIXEL_FRAC = 1e-3, 0.002   # card vs CPU rows
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12   # H100 SXM, published
 # the JAX package's own f32 RMSE against the C goldens, measured on the
-# CPU by scripts/jax_f32_golden_rmse.py; the port's bar is each + 2e-4
+# CPU by scripts/jax_f32_golden_rmse.py (from hypercube on through its
+# Pallas kernels in interpret mode); the port's bar is each + 2e-4
 JAX_F32_RMSE = {"test_4d_full": 0.0005276095464288421,
                 "test_3d_full": 0.0014369797951582126,
                 "random_5d_rows60_80": 0.0,
-                "infinite4d_full": 0.001807589705145131}
+                "infinite4d_full": 0.001807589705145131,
+                "hypercube_4d_rows60_90": 0.0017099967911047228,
+                "hypercube_4d_full": 0.0035189948550134035,
+                "hypercube_hcube_rows60_90": 0.002318304431063588,
+                "hypercube_hcube_full": 0.003565416014720395,
+                "hypercube_points_6d_full": 0.009854851374031708,
+                "cluster5d_rows80_150": 0.0005485775865011413,
+                "cluster5d_full": 0.00047673511310114894,
+                "nelder_mead_f12": 0.009074710907776664,
+                "nelder_mead_f60": 0.0034414604281107135,
+                "random600_rows88_91": 0.07741619002963639}
 JAX_SLACK = 2e-4
 TEST_BAND_RMSE = 2e-3    # tests/test_render.py's f32 bar, rows 220:260
 EXIT_TIE_FRAC = 1e-3     # live hit lanes whose normal comes from a t tie
@@ -1297,6 +1326,21 @@ def phase_kernels(torch, K, results, baseline=()):
                       "shade (local)": "local",
                       "shade (escalate)": "escalate"}, results,
                      "area 640x480", baseline)
+    # the rest of the scene registry: hypercube's cluster of kd-gated
+    # orthotopes (A = 3) and random600's budgeted gates (B = 8), checked
+    for scn, name, walk in (
+            (scene("hypercube", 4, 10, 2400), "hypercube 4-D f10",
+             "trace_any"),
+            (quiet(scene, "random", 5, config="600"), "random600 5-D",
+             "trace_shadow")):
+        sd, o, v, live = quiet(primary_rays, scn, 640, 480)
+        label = (f"{name} 640x480 ({sd.n_total} leaves, A = {sd.a_quad}, "
+                 f"gate B = {sd.b_gate} / {sd.b_fct} / {sd.b_hf})")
+        ok &= check_path(torch, K, sd, o, v, live,
+                         {"trace": None, "shade (carry)": "carry",
+                          "shade (local)": "local",
+                          "shade (escalate)": "escalate"}, results, label)
+        ok &= check_walks(torch, K, scn, 640, 480, results, label, walk)
     return ok
 
 
@@ -1687,6 +1731,132 @@ def phase_unfused_golden(torch, fused):
 
 
 # --------------------------------------------------------------------------
+# phase 4b: the rest of the scene registry against the C goldens
+
+# (scene, dim, frame, frames, config, width, height, golden, JAX_F32_RMSE
+# keys by rows)
+REGISTRY_GOLDENS = (
+    ("hypercube", 4, 0, 2400, None, 320, 240, "hypercube_4d_320x240_f0.png",
+     {"hypercube_4d_rows60_90": slice(60, 90),
+      "hypercube_4d_full": slice(0, 240)}),
+    ("hypercube", 4, 0, 2400, "hcube", 320, 240,
+     "hypercube_hcube_4d_320x240_f0.png",
+     {"hypercube_hcube_rows60_90": slice(60, 90),
+      "hypercube_hcube_full": slice(0, 240)}),
+    ("hypercube-points", 6, 0, 300, None, 160, 120,
+     "hypercube_points_6d_160x120_f0.png",
+     {"hypercube_points_6d_full": slice(0, 120)}),
+    ("cluster5d", 5, 0, 1, None, 320, 240, "cluster5d_5d_320x240_f0.png",
+     {"cluster5d_rows80_150": slice(80, 150),
+      "cluster5d_full": slice(0, 240)}),
+    ("nelder-mead", 3, 12, 410, None, 200, 150,
+     "nelder_mead_3d_200x150_f12.png", {"nelder_mead_f12": slice(0, 150)}),
+    ("nelder-mead", 3, 60, 410, None, 200, 150,
+     "nelder_mead_3d_200x150_f60.png", {"nelder_mead_f60": slice(0, 150)}),
+)
+
+
+def card_band(torch, scn, W, H, rows):
+    """Rows ``rows`` of a W x H frame rendered alone on the card
+    (render_tile), as bytes / 255, and the rays it traced."""
+    from ndt_tpu_torch.image import linear_to_bytes
+    from ndt_tpu_torch.render.engine import (RenderOptions, _pixel_grid,
+                                             render_tile)
+
+    sd, cam = device_setup(scn, W, H, "cuda")
+    xx, yy = _pixel_grid(W, H, np.float32)
+    c, _, n = render_tile(sd, cam,
+                          torch.as_tensor(xx[rows].ravel(), device="cuda"),
+                          torch.as_tensor(yy[rows].ravel(), device="cuda"),
+                          RenderOptions(width=W, height=H))
+    return linear_to_bytes(c.cpu().numpy().reshape(-1, W, 3)) / 255.0, int(n)
+
+
+def phase_registry(torch, card):
+    """Phase 4b: hypercube (its default cluster and 'hcube'),
+    hypercube-points 6-D, cluster5d and nelder-mead frames 12 and 60 on the
+    card against the C goldens, and random600's band rows 88:91, each
+    within the JAX package's own f32 RMSE + 2e-4 (random600: the reference
+    is not C-exact on that band); cluster5d regrouped by Scene.cluster(3)
+    equal to the plain frame."""
+    from ndt_tpu_torch.image import linear_to_bytes
+    from ndt_tpu_torch.render.engine import RenderOptions, render_frame
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_common import regrouped
+
+    ok = True
+    plain = None
+    for name, dim, frame, frames, config, W, H, gold, keys in \
+            REGISTRY_GOLDENS:
+        img, _, rays = render_frame(scene(name, dim, frame, frames, config),
+                                    RenderOptions(width=W, height=H))
+        torch.cuda.synchronize()
+        if name == "cluster5d":
+            plain = img
+        mine, ref = linear_to_bytes(img) / 255.0, golden(gold)
+        for key, rows in keys.items():
+            err = rmse(mine[rows], ref[rows])
+            bar = JAX_F32_RMSE[key] + JAX_SLACK
+            fok = bool(np.isfinite(img).all()) and err <= bar
+            ok &= fok
+            print(f"[golden] {name}{f' {config}' if config else ''} {dim}-D "
+                  f"f{frame} {W}x{H} rows {rows.start}:{rows.stop}: RMSE "
+                  f"{err:.3e} (bar {bar:.3e}: the JAX package's f32 "
+                  f"{JAX_F32_RMSE[key]:.3e} + {JAX_SLACK}), rays {rays} -> "
+                  f"{'PASS' if fok else 'FAIL'}")
+    for how in ("Scene.cluster(3)", "regrouped by k-means"):
+        scn = scene("cluster5d", 5)
+        if how.startswith("Scene"):
+            scn.cluster(3)
+        else:
+            regrouped(scn)
+        img, _, _ = render_frame(scn, RenderOptions(width=320, height=240))
+        same = bool(np.array_equal(img, plain))
+        ok &= same
+        print(f"[golden] cluster5d 320x240 {how} vs plain on the card: "
+              f"max |diff| {np.abs(img - plain).max():.3e}, equal "
+              f"{same} -> {'PASS' if same else 'FAIL'}")
+
+    # random600's band, with the early exit (the main path) and without it
+    # (the walk of the JAX package's CPU render, which the bar comes from)
+    from ndt_tpu_torch.render import kernels as K
+
+    key, rows = "random600_rows88_91", slice(88, 91)
+    bar = JAX_F32_RMSE[key] + JAX_SLACK
+    ref = golden("random600_5d_320x240_f0.png")[rows]
+    ee_min = K.EE_MIN_OBJECTS
+    bands = {}
+    try:
+        for exit_ in (True, False):
+            K.EE_MIN_OBJECTS = ee_min if exit_ else 1 << 30
+            t0 = time.perf_counter()
+            mine, rays = quiet(card_band, torch,
+                               scene("random", 5, config="600"), 320, 240,
+                               rows)
+            bands[exit_] = mine
+            err = rmse(mine, ref)
+            fok = bool(np.isfinite(mine).all()) and err <= bar
+            ok &= fok
+            print(f"[golden] random600 5-D 320x240 rows 88:91, early exit "
+                  f"{'on' if exit_ else 'off'} (rendered alone, "
+                  f"{time.perf_counter() - t0:.1f} s with its compile): RMSE "
+                  f"{err:.3e} (bar {bar:.3e}: the JAX package's f32 "
+                  f"{JAX_F32_RMSE[key]:.3e} + {JAX_SLACK}; the reference "
+                  f"leaves gate-sensitive pixels off the C there), rays "
+                  f"{rays} -> {'PASS' if fok else 'FAIL'}")
+    finally:
+        K.EE_MIN_OBJECTS = ee_min
+    off = int((np.abs(bands[True] - bands[False]).max(-1) > PIXEL_TOL).sum())
+    print(f"[golden] random600 band, exit on vs off: {off} of "
+          f"{bands[True].shape[0] * bands[True].shape[1]} pixels differ by > "
+          f"{PIXEL_TOL} (where hcube faces tie in t the exit's reach order "
+          f"can pick another face than the gid-ordered walk; the secondary "
+          f"rays follow)")
+    return ok
+
+
+# --------------------------------------------------------------------------
 # phase 5: the main paths, timed
 
 
@@ -1879,8 +2049,10 @@ def phase_frames(torch, K, card, results, baseline=()):
     test4 = scene("test", 4)
     # one timed frame (its profiled frame below is another sample): the
     # host-bound stack frames take 10-16 s each
+    # the golden phase rendered this frame (every kernel and torch op of it
+    # has run): no warm-up
     ok &= timed_frames(torch, K, test4, opts, ("shade_facets",), results,
-                       "test 4-D f0", card, reps=1,
+                       "test 4-D f0", card, reps=1, warm=False,
                        also=("trace_gated", "trace_facets", "shade_point"),
                        sizes=True, baseline=baseline)
     ok &= busy_share(test4, opts, "test 4-D f0")
@@ -1913,6 +2085,54 @@ def phase_frames(torch, K, card, results, baseline=()):
                        "area (DISK + RECT) f0", card,
                        also=("trace_closest", "shade_carry"))
     ok &= busy_share(area, opts, "area (DISK + RECT) f0")
+    return ok & registry_frames(torch, K, card, results)
+
+
+def registry_frames(torch, K, card, results):
+    """The bench rows of the rest of the scene registry at 640x480, fused
+    (bench.py's matrix): hypercube f10 and hypercube 'walls' f10 (kd-gated
+    orthotopes, a directional light), cluster5d f0 (spheres in a cluster,
+    two point lights) and random600 f0 (10,533 leaves behind budgeted
+    gates, the early exit; one timed frame); each with its busy share, and
+    random600's compile_scene host time and the frame's peak device
+    memory."""
+    from ndt_tpu_torch.render.engine import RenderOptions
+    from ndt_tpu_torch.scene import compile_scene
+
+    opts = RenderOptions(width=640, height=480)
+    ok = True
+    for label, scn, also in (
+            ("hypercube 4-D f10", scene("hypercube", 4, 10, 2400),
+             ("trace_gated", "shade_carry")),
+            ("hypercube walls 4-D f10",
+             scene("hypercube", 4, 10, 2400, "walls"),
+             ("trace_gated", "shade_carry")),
+            ("cluster5d 5-D f0", scene("cluster5d", 5),
+             ("trace_closest", "shade_carry", "shade_point"))):
+        ok &= timed_frames(torch, K, scn, opts, (), results, label, card,
+                           also=also)
+        ok &= busy_share(scn, opts, label)
+    r600 = quiet(scene, "random", 5, config="600")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        quiet(compile_scene, r600)
+        times.append(time.perf_counter() - t0)
+    print(f"[frame] random600 5-D compile_scene (host, 600 kd items, the "
+          f"budgeted kd build): {float(np.median(times)):.4f} s (median of "
+          f"3: {', '.join(f'{x:.4f}' for x in times)})")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ok &= timed_frames(torch, K, r600, opts, (), results,
+                       "random600 5-D f0", card, reps=1,
+                       also=("trace_gated", "trace_facets", "trace_early_exit",
+                             "shade_facets", "shade_point"))
+    peak = torch.cuda.max_memory_allocated()
+    mib = 1 << 20
+    print(f"[frame] random600 5-D f0 640x480 peak device memory "
+          f"{peak / mib:.1f} MiB allocated by torch ({(peak - base) / mib:.1f}"
+          f" MiB above the {base / mib:.1f} MiB held before the frames)")
+    ok &= busy_share(r600, opts, "random600 5-D f0")
     return ok
 
 
@@ -1956,6 +2176,7 @@ def main(argv=None):
                                                 baseline)),
               ("census", lambda: phase_census(torch, K, baseline)),
               ("golden", lambda: phase_golden(torch, K, card, results)),
+              ("registry", lambda: phase_registry(torch, card)),
               ("frames", lambda: phase_frames(torch, K, card, results,
                                               baseline)))
     for label, phase in phases:

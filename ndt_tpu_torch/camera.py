@@ -201,6 +201,21 @@ class Camera:
             self.leveling = curr
         return self.aim_naive()
 
+    def describe(self) -> str:
+        """camera_print (camera.c:583-611), for the planar camera."""
+        def v(x):
+            return tuple(round(float(c), 4) for c in np.asarray(x))
+
+        lines = [f"  camera type {int(self.type)}: viewPoint "
+                 f"{v(self.view_point)} -> viewTarget {v(self.view_target)}"
+                 f", up {v(self.up)}"]
+        if self.rotation:
+            lines.append(f"    rotation: {self.rotation:g}")
+        if self.prepared:
+            lines.append(f"    pos {v(self.pos)}, imgOrig {v(self.img_orig)}")
+            lines.append(f"    dirX {v(self.dir_x)}, dirY {v(self.dir_y)}")
+        return "\n".join(lines)
+
     def data(self, dtype=torch.float32, device="cuda"):
         """Pack what the planar camera's center-eye rays read into tensors
         on ``device``, the card unless the caller asks for the CPU (the

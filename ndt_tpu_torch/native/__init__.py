@@ -1,13 +1,15 @@
 """Host C++ components (the balls physics stepper, the bounding-sphere
 fits, one or a threaded batch, and the kd leaf cells), loaded with ctypes.
 
-``physics.cc`` and ``bounding.cc`` are the JAX package's own host sources,
-built with the same host compiler and flags, so that scene preparation
-gives the same bits in both packages; ``kdcells.cc`` is the port's Python
-kd recursion (utils/kdtree.py) in C++, bit-equal to it.  They compile at
+``physics.cc``, ``bounding.cc`` and ``kdsplit.cc`` (the budgeted kd
+builder) are copies of the JAX package's own host sources, built with the
+same host compiler and flags, so that scene preparation gives the same bits
+in both packages; ``kdcells.cc`` is the port's Python kd recursion
+(utils/kdtree.py) in C++, bit-equal to it.  They compile at
 first use into the git-ignored ``ndt_tpu_torch/_build/`` under a name that
 hashes sources and flags.  Without a host compiler every caller takes its
-numpy / Python path.
+numpy / Python path, except the budgeted kd build, which has none and
+raises (``kd_cells_budget``).
 """
 
 from __future__ import annotations
@@ -74,6 +76,15 @@ def get_lib():
         lib.ndt_kd_cells_take.argtypes = [
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), _PD]
         lib.ndt_kd_cells_take.restype = None
+        lib.ndt_kd_cells_budget.argtypes = [
+            _PD, _PD, ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
+            ctypes.c_double, ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(_PD),
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_int32))]
+        lib.ndt_kd_cells_budget.restype = ctypes.c_int64
+        lib.ndt_kd_cells_free.argtypes = [_PD, ctypes.POINTER(ctypes.c_int32)]
+        lib.ndt_kd_cells_free.restype = None
         _LIB = lib
     return _LIB
 
@@ -155,3 +166,40 @@ def kd_cells(lowers, uppers, eps):
                           items.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
                           _ptr(boxes))
     return items, boxes
+
+
+def kd_cells_budget(lowers, uppers, eps, max_boxes, node_budget, max_depth,
+                    clip_pad=-1.0, clip_rel=0.0):
+    """The budgeted kd leaf cells of n items with boxes lowers / uppers
+    [n, D] (kdsplit.cc ndt_kd_cells_budget): the reference's recursion,
+    stopped past ``node_budget`` split calls or ``max_depth`` levels,
+    each emitted cell clipped to its item's box padded by ``clip_pad`` +
+    ``clip_rel`` |coord| when ``clip_pad`` >= 0, and each item's cells
+    merged into at most ``max_boxes`` boxes.  Returns (boxes [K, D, 2]
+    float64, items [K] int32, truncated: whether a budget or depth stop
+    fired).  Raises when the host library cannot be built: there is no
+    Python path, and per-item boxes instead would render another image."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("the budgeted kd build needs the host library "
+                           "(ndt_tpu_torch/native, built with g++), which "
+                           "could not be built")
+    lo = np.ascontiguousarray(lowers, np.float64)
+    hi = np.ascontiguousarray(uppers, np.float64)
+    n, d = lo.shape
+    pb = _PD()
+    pi = ctypes.POINTER(ctypes.c_int32)()
+    trunc = ctypes.c_int32(0)
+    count = lib.ndt_kd_cells_budget(_ptr(lo), _ptr(hi), n, d, eps,
+                                    max_boxes, node_budget, max_depth,
+                                    clip_pad, clip_rel, ctypes.byref(trunc),
+                                    ctypes.byref(pb), ctypes.byref(pi))
+    try:
+        boxes = np.empty((count, d, 2), np.float64)
+        items = np.empty(count, np.int32)
+        if count:
+            boxes[:] = np.ctypeslib.as_array(pb, shape=(count, d, 2))
+            items[:] = np.ctypeslib.as_array(pi, shape=(count,))
+    finally:
+        lib.ndt_kd_cells_free(pb, pi)
+    return boxes, items, bool(trunc.value)

@@ -33,15 +33,19 @@ memory rather than SMEM-flattened rows; the facet and hfacet gate boxes are
 ``scene_from_numpy`` carries a scene compiled by the JAX package over, so a
 test can run both packages on identical data.
 
-Not ported yet (ROADMAP Queue 1 item 10): clusters and the budgeted kd
-builder for scenes past _KD_EXACT_MAX kd items.  SMEM chunking is a TPU
-limit the port does not have: its tables sit in global memory whole.
+Clusters are culling containers: ``_flatten`` walks their children, which
+keep their own materials.  Past _KD_EXACT_MAX kd items the gates come from
+the budgeted kd build (``native/kdsplit.cc``, the JAX package's), which has
+no Python path: without the host library such a scene raises.  SMEM
+chunking is a TPU limit the port does not have: its tables sit in global
+memory whole.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import warnings
 from typing import List, Optional
 
@@ -265,30 +269,44 @@ def _flatten(objects: List[Object], dim: int):
     bounding sphere fit (object.c:582-603), plus the kd ITEM list in the
     reference's object_kdlist_add order.
 
-    Top-level infinite objects go to the trace-always list
-    (kd-tree.c:446-460), not the tree.  The JAX compiler also walks
-    clusters, whose children enter the item list even when infinite (the
-    reference bounds only top-level objects, ndt.c:1897-1907); clusters are
-    not ported, so every object here is top level."""
+    A cluster is a culling container: its children are walked in order and
+    keep their own materials.  Top-level infinite objects go to the
+    trace-always list (kd-tree.c:446-460), not the tree.  Inside a cluster
+    the reference bounds only top-level objects (ndt.c:1897-1907), so an
+    infinite child (empty bounding points: hypercube.c's flag-2 edge
+    hcylinders) counts as finite, enters the tree with the inverted empty
+    box (kd-tree.c:16-21, 423-431), always sorts into the leftmost leaf and
+    is never reached by a camera ray: it takes a kd item, which enters
+    split scoring, and yields no leaf (the JAX package's kd-parity quirk,
+    ndt_tpu/scene/compile.py:310-323)."""
     leaves: List[_Leaf] = []
     materials: List[Object] = []
     kd_items: List[tuple] = []      # (lo, hi) per item, C scan order
-    for obj in objects:
+
+    def walk(obj: Object, in_cluster: bool):
+        if obj.type_name == "cluster":
+            for c in obj.children:
+                walk(c, True)
+            return
         kind = _LEAF_KIND.get(obj.type_name)
         if kind is None:
-            raise NotImplementedError(
-                f"object type {obj.type_name!r} is not ported yet "
-                "(ROADMAP Queue 1 item 10: remaining families)")
+            raise ValueError(f"cannot compile object type {obj.type_name!r}")
         if obj.bounds_radius is None:
             obj.get_bounds()
+        infinite = obj.bounds_radius < 0
         item = -1
-        if obj.bounds_radius >= 0:
+        if in_cluster or not infinite:
             kd_items.append(_item_aabb(obj, dim))
             item = len(kd_items) - 1
+        if in_cluster and infinite:
+            return
         materials.append(obj)
         mid = len(materials) - 1
         parts = _hcube_faces(obj) if obj.type_name == "hcube" else [obj]
         leaves.extend(_Leaf(kind, part, mid, kd_item=item) for part in parts)
+
+    for obj in objects:
+        walk(obj, False)
     return leaves, materials, kd_items
 
 
@@ -342,9 +360,14 @@ def _mat_ids(leaves):
 
 # max kd leaf cells per item before the gate falls back to their union
 _GATE_MAX = 24
-# max kd items for the C-exact leaf-cell build; past it the JAX package
-# runs a budgeted native builder, which the port does not have yet
+# max kd items for the C-exact leaf-cell build; past it the budgeted build
+# (native/kdsplit.cc) runs with these knobs, the JAX package's: the split
+# node budget (largest node first), the recursion depth cap and the merged
+# boxes per item
 _KD_EXACT_MAX = 256
+_KD_BUDGET = int(os.environ.get("NDT_KD_BUDGET", 20000))
+_KD_DEPTH_MAX = 64
+_GATE_DENSE_MAX = int(os.environ.get("NDT_GATE_DENSE", 8))
 
 
 def _leaf_gated(leaf) -> bool:
@@ -363,7 +386,8 @@ def _leaf_gated(leaf) -> bool:
 def _kd_cell_gates(leaves, kd_items, dim):
     """(cells per kd item, tree AABB lo, hi) for the gated leaves, or None
     when no leaf is gated.  The C's kd tree is rebuilt exactly
-    (utils/kdtree.build_c_exact) and a gated leaf is tested only by rays
+    (utils/kdtree.build_c_exact), or past _KD_EXACT_MAX items under a
+    budget (_budgeted_cells), and a gated leaf is tested only by rays
     piercing the union of its item's leaf cells, clipped by the tree's root
     AABB for the t-test (kd_tree_intersect enters through
     aabb_intersect(&tree->bb), kd-tree.c:598)."""
@@ -371,18 +395,46 @@ def _kd_cell_gates(leaves, kd_items, dim):
              if leaf.kd_item >= 0 and _leaf_gated(leaf)}
     if not gated or not kd_items:
         return None
-    if len(kd_items) > _KD_EXACT_MAX:
-        raise NotImplementedError(
-            f"{len(kd_items)} kd items > {_KD_EXACT_MAX}: gated scenes past "
-            "the C-exact kd build need the budgeted builder (ROADMAP Queue "
-            "1 item 10, with random600)")
     lowers = np.stack([lo for lo, _ in kd_items])
     uppers = np.stack([hi for _, hi in kd_items])
-    cells = build_c_exact(lowers, uppers)
+    if len(kd_items) <= _KD_EXACT_MAX:
+        cells = build_c_exact(lowers, uppers)
+    else:
+        cells = _budgeted_cells(lowers, uppers)
     finite = ~np.isinf(lowers).any(1)
     bb_lo = lowers[finite].min(0) if finite.any() else np.full(dim, -BIG)
     bb_hi = uppers[finite].max(0) if finite.any() else np.full(dim, BIG)
     return cells, bb_lo, bb_hi
+
+
+def _budgeted_cells(lowers, uppers):
+    """Per-item cells of a scene past _KD_EXACT_MAX kd items, where the
+    C-exact build explodes (straddlers duplicate into both children): the
+    same recursion under a node budget, each cell clipped to its item's
+    box padded as the tile cull pads geometry boxes (0.02 + 1e-4 |coord|,
+    which covers the families' acceptance shells), each item's cells merged
+    into at most _GATE_DENSE_MAX boxes (ndt_tpu/scene/compile.py:517-557).
+    Both cuts give supersets of the exact leaf-cell union: the gate admits
+    every shell / phantom hit the C's traversal shows and may admit extra
+    ones in merged gaps."""
+    boxes, items, _ = native.kd_cells_budget(
+        lowers, uppers, EPSILON, _GATE_DENSE_MAX, _KD_BUDGET, _KD_DEPTH_MAX,
+        clip_pad=0.02 + EPSILON, clip_rel=1e-4)
+    warnings.warn(
+        f"scene has {len(lowers)} kd items > {_KD_EXACT_MAX}: "
+        "shell/phantom gating (orthotope EPSILON shells, facet "
+        "surface shells, D>3 hfacet phantom hypersurfaces) uses "
+        "BUDGETED kd leaf cells: a conservative superset of the "
+        "C-exact cells (everything the C shows is admitted; "
+        "merged-gap regions may show extra shell/phantom hits)",
+        RuntimeWarning, stacklevel=3)
+    cells = [[] for _ in range(len(lowers))]
+    for b, i in zip(boxes, items):
+        cells[int(i)].append(b)
+    for i, c in enumerate(cells):      # an item that reached no leaf
+        if not c:
+            c.append(np.stack([lowers[i], uppers[i]], axis=-1))
+    return cells
 
 
 def _pack_gate_tables(leaves, dim, gates):

@@ -4,8 +4,9 @@ Counterpart of ``ndt_tpu/scene/model.py`` (object.h, scene.h).  All arrays
 are numpy float64, as in the C.  The type registry holds every builtin type
 of the reference with its parameter counts: the random scene draws its
 parameters from these counts, so a wrong count shifts its whole drand48
-stream.  Clusters are registered but not compiled yet; ``Scene.cluster``
-comes with them (ROADMAP Queue 1 item 10).
+stream.  Transforms (move / rotate / rotate2) follow object.c:518-580 and
+recurse into a cluster's children; ``Scene.cluster`` wraps the finite
+objects in a k-means cluster tree (scene.c:252-340).
 """
 
 from __future__ import annotations
@@ -136,6 +137,39 @@ class Object:
                     f"{p.shape} in a {self.dim}-D object")
         for c in self.children:
             c.validate()
+        return self
+
+    def move(self, offset):
+        """object_move (object.c:518-531)."""
+        offset = np.asarray(offset, dtype=np.float64)
+        self.pos = [p + offset for p in self.pos]
+        if self.bounds_center is not None:
+            self.bounds_center = self.bounds_center + offset
+        for c in self.children:
+            c.move(offset)
+        return self
+
+    def rotate(self, center, i, j, angle):
+        """object_rotate (object.c:533-556): the (i, j) plane."""
+        self.pos = [mathnd.rotate(p, center, i, j, angle) for p in self.pos]
+        self.dir = [mathnd.rotate(d, None, i, j, angle) for d in self.dir]
+        if self.bounds_center is not None:
+            self.bounds_center = mathnd.rotate(self.bounds_center, center,
+                                               i, j, angle)
+        for c in self.children:
+            c.rotate(center, i, j, angle)
+        return self
+
+    def rotate2(self, center, v1, v2, angle):
+        """object_rotate2 (object.c:558-580): the plane of v1 and v2."""
+        self.pos = [mathnd.rotate2(p, center, v1, v2, angle)
+                    for p in self.pos]
+        self.dir = [mathnd.rotate2(d, None, v1, v2, angle) for d in self.dir]
+        if self.bounds_center is not None:
+            self.bounds_center = mathnd.rotate2(self.bounds_center, center,
+                                                v1, v2, angle)
+        for c in self.children:
+            c.rotate2(center, v1, v2, angle)
         return self
 
     def bounding_points(self):
@@ -281,8 +315,75 @@ class Scene:
         self.lights.append(lgt)
         return lgt
 
+    def remove_object(self, obj: Object):
+        self.objects.remove(obj)
+
     def validate(self):
         """scene_validate_objects (scene.c:228-239)."""
         for o in self.objects:
             o.validate()
+        return self
+
+    def describe(self) -> str:
+        """scene_print (scene.c:342-369): the camera, the lights and the
+        object tree with types and names."""
+        lines = [f"scene {self.name!r}: {self.dim}-D, "
+                 f"{len(self.objects)} objects, {len(self.lights)} lights, "
+                 f"ambient {tuple(round(float(x), 3) for x in self.ambient)}"]
+        lines.append(self.cam.describe())
+        for lgt in self.lights:
+            color = tuple(round(float(x), 3) for x in lgt.color)
+            lines.append(f"  light {lgt.type.name.lower()}"
+                         f"{' ' + lgt.name if lgt.name else ''}: "
+                         f"color {color}")
+
+        def walk(objs, depth):
+            for o in objs:
+                lines.append("    " * depth + f"  {o.type_name}: {o.name}")
+                walk(o.children, depth + 1)
+
+        walk(self.objects, 0)
+        return "\n".join(lines)
+
+    def print(self):
+        print(self.describe())
+
+    def find_dupes(self):
+        """scene_find_dupes (scene.c:371-400): objects whose type and
+        parameters equal an earlier object's."""
+        dupes = []
+        seen = set()
+        for o in self.objects:
+            key = (o.type_name,
+                   tuple(tuple(p) for p in o.pos),
+                   tuple(tuple(d) for d in o.dir),
+                   tuple(o.size), tuple(o.flag))
+            if key in seen:
+                dupes.append(o)
+            else:
+                seen.add(key)
+        return dupes
+
+    def remove_dupes(self):
+        """scene_remove_dupes (scene.c:402-427)."""
+        for o in self.find_dupes():
+            self.objects.remove(o)
+        return self
+
+    def cluster(self, k: int):
+        """scene_cluster (scene.c:252-340): wrap the finite objects in a
+        k-means cluster tree (utils/kmeans.build_cluster_tree).  Infinite
+        objects stay at top level, as in the JAX package: the C wraps them
+        in an unbounded cluster, but scene_cluster runs only without the
+        kd tree (ndt.c:1897-1911), and under the kd path that the compiler
+        follows an infinite child of a cluster is never reached (see
+        compile._flatten), while a top-level one is traced always."""
+        from ndt_tpu_torch.utils.kmeans import build_cluster_tree
+
+        finite = [o for o in self.objects
+                  if o.get_bounds().bounds_radius >= 0.0]
+        infinite = [o for o in self.objects if o not in finite]
+        if not finite:
+            return self
+        self.objects = [build_cluster_tree(self.dim, finite, k)] + infinite
         return self

@@ -4,10 +4,8 @@
     scene_frames(dimensions, config) -> int           (optional)
     scene_cleanup() -> None                           (optional)
 
-where ``scn`` is an ``ndt_tpu_torch.scene.Scene``.  Ported so far:
-``balls``, ``anim6d``, ``lights3d``, ``infinite4d``, ``random`` and the
-built-in ``test`` scene (also ``builtin``); the other scenes of the JAX package
-follow with the families they need (ROADMAP).
+where ``scn`` is an ``ndt_tpu_torch.scene.Scene``.  Every scene of the JAX
+package's registry but ``yaml`` (the YAML reader is not ported yet).
 """
 
 from __future__ import annotations
@@ -18,11 +16,16 @@ import os
 _SCENES = {
     "test": "ndt_tpu_torch.scenes.builtin",
     "builtin": "ndt_tpu_torch.scenes.builtin",
-    "anim6d": "ndt_tpu_torch.scenes.anim6d",
+    "empty": "ndt_tpu_torch.scenes.empty",
     "balls": "ndt_tpu_torch.scenes.balls",
+    "hypercube": "ndt_tpu_torch.scenes.hypercube",
+    "hypercube-points": "ndt_tpu_torch.scenes.hypercube_points",
+    "random": "ndt_tpu_torch.scenes.random_scene",
+    "cluster5d": "ndt_tpu_torch.scenes.cluster5d",
     "lights3d": "ndt_tpu_torch.scenes.lights3d",
     "infinite4d": "ndt_tpu_torch.scenes.infinite4d",
-    "random": "ndt_tpu_torch.scenes.random_scene",
+    "anim6d": "ndt_tpu_torch.scenes.anim6d",
+    "nelder-mead": "ndt_tpu_torch.scenes.nelder_mead_scene",
 }
 
 

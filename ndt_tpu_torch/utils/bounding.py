@@ -21,6 +21,11 @@ from ndt_tpu_torch.utils.nelder_mead import NelderMead
 Bound = Tuple[np.ndarray, float]  # (center, radius); radius may be 0
 
 
+def centroid(points: Sequence[Bound]) -> np.ndarray:
+    """bounds_list_centroid (bounding.c:143-159)."""
+    return np.mean([c for c, _ in points], axis=0)
+
+
 def radius_about(points: Sequence[Bound], center: np.ndarray) -> float:
     """bounds_list_radius (bounding.c:161-175): max over points of
     |center - p| (+ p's own radius when positive)."""
@@ -45,7 +50,7 @@ def optimal_bounding_sphere(points: Sequence[Bound]) -> Tuple[np.ndarray,
     if nat is not None:
         return nat
 
-    seed = np.mean([c for c, _ in points], axis=0)  # bounding.c:143-159
+    seed = centroid(points)
     seed_radius = radius_about(points, seed)
     nm = NelderMead(len(seed)).set_seed(seed)
     while not nm.done(EPSILON, 1000):

@@ -22,7 +22,7 @@ preparation only (bounding.c:177-240).
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
@@ -171,6 +171,16 @@ class NelderMead:
                 best = i
         return self._points[best].copy()
 
+    def best_value(self) -> float:
+        return min(self._values)
+
+    def simplex_point(self, which: int):
+        """nm_simplex_point (nelder-mead.c:409-419): (point, value), or
+        None when ``which`` is out of range."""
+        if which >= len(self._points):
+            return None
+        return self._points[which].copy(), self._values[which]
+
     def done(self, threshold: float, iterations: int) -> bool:
         """nm_done (nelder-mead.c:421-447)."""
         if self.state == INITIAL:
@@ -182,3 +192,13 @@ class NelderMead:
         dist = float(np.sqrt(((self._points[0] - self._points[-1]) ** 2)
                              .sum()))
         return dist < threshold
+
+
+def minimize(fn: Callable[[np.ndarray], float], x0, eps=1e-4,
+             max_iterations=1000) -> np.ndarray:
+    """Drive a NelderMead to convergence; returns the best point."""
+    nm = NelderMead(len(np.asarray(x0))).set_seed(x0)
+    while not nm.done(eps, max_iterations):
+        x = nm.next_point()
+        nm.add_result(x, fn(x))
+    return nm.best_point()

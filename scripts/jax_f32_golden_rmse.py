@@ -11,12 +11,27 @@ Renders, through ndt_tpu.render.engine.render_frame on the CPU in float32
   * the built-in test scene 3-D 320x240 frame 0, the full frame;
   * random "20" 5-D 320x240 frame 0, rows 60:80 (the band of
     tests/test_goldens_extended.py);
-  * infinite4d 4-D 240x180 frame 0, the full frame.
-Prints one line per frame and a JSON line of the values.
+  * infinite4d 4-D 240x180 frame 0, the full frame;
+  * hypercube 4-D 320x240 frame 0, rows 60:90 and the full frame, in its
+    default config and in config "hcube";
+  * hypercube-points 6-D 160x120 frame 0, the full frame;
+  * cluster5d 5-D 320x240 frame 0, rows 80:150 and the full frame;
+  * nelder-mead 3-D 200x150 frames 12 and 60 of 410, the full frames;
+  * random "600" 5-D 320x240 frame 0, rows 88:91 (the band of
+    tests/test_dense.py, rendered alone through render_tile).
+The first four render through the JAX package's default trace on the CPU
+(its XLA path); the later ones through its Pallas kernels in interpret mode
+(``ndt_tpu.render.trace.set_trace_impl("pallas-interpret")``), whose
+walks the port's kernels follow: on the f32 knife edges of orthotope
+shells the two JAX paths can differ (hypercube "hcube" rows 60:90: one
+pixel, 0.72 against 0.45 blue).  Prints one line per frame and a JSON line
+of the values.  --only KEY (repeatable) renders only those frames.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -28,7 +43,67 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# frames from this key on render through the Pallas kernels (interpret)
+FIRST_INTERPRET = "hypercube_4d_rows60_90"
+# key, scene, dim, width, height, rows, config, golden, frame, frames
+FRAMES = (
+    ("test_4d_full", "test", 4, 640, 480, slice(0, 480), None,
+     "test_4d_640x480_f0.png"),
+    ("test_3d_full", "test", 3, 320, 240, slice(0, 240), None,
+     "test_3d_320x240_f0.png"),
+    ("random_5d_rows60_80", "random", 5, 320, 240, slice(60, 80),
+     "20", "random_5d_320x240_f0.png"),
+    ("infinite4d_full", "infinite4d", 4, 240, 180, slice(0, 180),
+     None, "infinite4d_4d_240x180_f0.png"),
+    ("hypercube_4d_rows60_90", "hypercube", 4, 320, 240, slice(60, 90),
+     None, "hypercube_4d_320x240_f0.png"),
+    ("hypercube_4d_full", "hypercube", 4, 320, 240, slice(0, 240), None,
+     "hypercube_4d_320x240_f0.png"),
+    ("hypercube_hcube_rows60_90", "hypercube", 4, 320, 240,
+     slice(60, 90), "hcube", "hypercube_hcube_4d_320x240_f0.png"),
+    ("hypercube_hcube_full", "hypercube", 4, 320, 240, slice(0, 240),
+     "hcube", "hypercube_hcube_4d_320x240_f0.png"),
+    ("hypercube_points_6d_full", "hypercube-points", 6, 160, 120,
+     slice(0, 120), None, "hypercube_points_6d_160x120_f0.png"),
+    ("cluster5d_rows80_150", "cluster5d", 5, 320, 240, slice(80, 150),
+     None, "cluster5d_5d_320x240_f0.png"),
+    ("cluster5d_full", "cluster5d", 5, 320, 240, slice(0, 240), None,
+     "cluster5d_5d_320x240_f0.png"),
+    ("nelder_mead_f12", "nelder-mead", 3, 200, 150, slice(0, 150), None,
+     "nelder_mead_3d_200x150_f12.png", 12, 410),
+    ("nelder_mead_f60", "nelder-mead", 3, 200, 150, slice(0, 150), None,
+     "nelder_mead_3d_200x150_f60.png", 60, 410),
+    ("random600_rows88_91", "random", 5, 320, 240, slice(88, 91), "600",
+     "random600_5d_320x240_f0.png"),
+)
+
+
+def band_only(scn, w, h, rows):
+    """Rows ``rows`` of a w x h f32 frame, rendered alone (render_tile)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ndt_tpu.render.engine import RenderOptions, _pixel_grid, render_tile
+    from ndt_tpu.scene.compile import compile_scene
+
+    scn.cam.aim()
+    cd = scn.cam.data(np.float32)
+    cd = dataclasses.replace(cd, dir_x=cd.dir_x * np.float32(w / h))
+    xx, yy = _pixel_grid(w, h, np.dtype(np.float32))
+    xb, yb = xx[rows].ravel(), yy[rows].ravel()
+    c, _, _ = render_tile(compile_scene(scn, np.float32), cd,
+                          jnp.asarray(xb), jnp.asarray(yb),
+                          jax.random.PRNGKey(0),
+                          RenderOptions(width=w, height=h, samples=1,
+                                        tile=len(xb)), "center")
+    return np.asarray(c).reshape(-1, w, 3)
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", action="append", default=[],
+                    help="render only this frame's key (repeatable)")
+    args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import jax
 
@@ -37,32 +112,42 @@ def main():
 
     from ndt_tpu.image_io import linear_to_bytes
     from ndt_tpu.render.engine import RenderOptions, render_frame
+    from ndt_tpu.render.trace import set_trace_impl
     from ndt_tpu.scene.model import Scene
     from ndt_tpu.scenes import get_scene
 
     out = {}
-    for key, name, dim, w, h, rows, config, golden in (
-            ("test_4d_full", "test", 4, 640, 480, slice(0, 480), None,
-             "test_4d_640x480_f0.png"),
-            ("test_3d_full", "test", 3, 320, 240, slice(0, 240), None,
-             "test_3d_320x240_f0.png"),
-            ("random_5d_rows60_80", "random", 5, 320, 240, slice(60, 80),
-             "20", "random_5d_320x240_f0.png"),
-            ("infinite4d_full", "infinite4d", 4, 240, 180, slice(0, 180),
-             None, "infinite4d_4d_240x180_f0.png")):
+    impl = "auto"
+    for key, name, dim, w, h, rows, config, golden, *fr in FRAMES:
+        if key == FIRST_INTERPRET:
+            impl = "pallas-interpret"
+        if args.only and key not in args.only:
+            continue
+        # the trace path is read when a program is traced: drop the
+        # programs traced under the other one
+        set_trace_impl(impl)
+        jax.clear_caches()
+        frame, frames = fr or (0, 1)
         t0 = time.perf_counter()
+        mod = get_scene(name)
         scn = Scene(name, dim)
-        get_scene(name).scene_setup(scn, dim, 0, 1, config)
+        mod.scene_setup(scn, dim, frame, frames, config)
+        if hasattr(mod, "scene_cleanup"):
+            mod.scene_cleanup()
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
-            img, _, _ = render_frame(scn, RenderOptions(width=w, height=h))
-        mine = linear_to_bytes(np.asarray(img)[rows]) / 255.0
+            if rows.stop - rows.start < h // 20:
+                img = band_only(scn, w, h, rows)
+            else:
+                img = np.asarray(render_frame(
+                    scn, RenderOptions(width=w, height=h))[0])[rows]
+        mine = linear_to_bytes(img) / 255.0
         ref = np.asarray(Image.open(os.path.join(ROOT, "tests", "goldens",
                                                  golden)).convert("RGB"))
         ref = ref[rows].astype(np.float64) / 255.0
         out[key] = float(np.sqrt(((mine - ref) ** 2).mean()))
         print(f"{key}: JAX f32 RMSE {out[key]!r} vs {golden} "
-              f"({time.perf_counter() - t0:.1f} s)")
+              f"({impl}, {time.perf_counter() - t0:.1f} s)")
     print(json.dumps(out))
 
 

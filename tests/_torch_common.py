@@ -64,9 +64,60 @@ def port_scene(name, dim, frame=0, frames=1, config=None):
 
 
 def reset_port_scenes():
-    from ndt_tpu_torch.scenes import balls
+    """Reset the port's stateful scenes (balls' physics, nelder-mead's
+    point cloud and run): tests/conftest.py resets only the JAX package's
+    scene modules."""
+    from ndt_tpu_torch.scenes import balls, nelder_mead_scene
 
     balls.scene_cleanup()
+    nelder_mead_scene.scene_cleanup()
+
+
+def object_tree(o):
+    """Every field of an object and, recursively, of its children."""
+    return (o.type_name, o.name, [np.asarray(p) for p in o.pos],
+            [np.asarray(d) for d in o.dir], list(o.size), list(o.flag),
+            o.color, o.reflect, bool(o.transparent), o.refract_index,
+            o.bounds_center, o.bounds_radius,
+            [object_tree(c) for c in o.children])
+
+
+def assert_same(a, b, where="scene"):
+    """Nested object trees equal, arrays to the bit."""
+    if isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=where)
+    else:
+        assert a == b, where
+
+
+def assert_scenes_equal(pscn, jscn):
+    """Objects, lights, ambient, background and the aimed camera."""
+    assert_same([object_tree(o) for o in pscn.objects],
+                [object_tree(o) for o in jscn.objects])
+    assert len(pscn.lights) == len(jscn.lights)
+    for a, b in zip(pscn.lights, jscn.lights):
+        assert int(a.type) == int(b.type)
+        for f in ("pos", "dir", "color", "u", "v"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
+    for f in ("ambient", "bg"):
+        np.testing.assert_array_equal(getattr(pscn, f), getattr(jscn, f))
+    for f in ("pos", "img_orig", "dir_x", "dir_y"):
+        np.testing.assert_array_equal(getattr(pscn.cam, f),
+                                      getattr(jscn.cam, f), f)
+
+
+def regrouped(scn):
+    """cluster5d with its 40 spheres taken out of the helix cluster to top
+    level, then Scene.cluster(3): k-means runs over the spheres and its
+    labels order the leaves (Scene.cluster on cluster5d itself wraps the
+    one finite object, the helix, as it is)."""
+    scn.objects = [scn.objects[0]] + scn.objects[1].children
+    return scn.cluster(3)
 
 
 def primary_rays_np(W=W, H=H):
@@ -120,6 +171,19 @@ def port_primary_rays(device, W=W, H=H):
     o, v, R = _pad_rays(o, v, 4096)
     live = torch.arange(o.shape[0], device=device) < R
     return sd, o.contiguous(), v.contiguous(), live
+
+
+def many_items_scene(port=False):
+    """257 spheres in a row and one orthotope, 3-D: 258 kd items, past the
+    exact kd build's cap of 256, with one gated leaf."""
+    _, Scene = _model(port)
+    scn = Scene("many", 3)
+    for i in range(257):
+        s = scn.add_object("sphere")
+        s.add_pos(np.array([i * 3.0, 0, 0])).add_size(1.0)
+    o = scn.add_object("orthotope")
+    o.add_pos(np.zeros(3)).add_dir(np.array([1.0, 0, 0])).add_flag(1)
+    return scn
 
 
 def seeded_scene(dim, port=False, lit=False, flat=0, facets=False):
@@ -438,11 +502,13 @@ def assert_shade_bar(case, mode, specular=True, min_hit=0.2):
         return (jn < -0.5).sum()
 
 
-def assert_card_shade_variants(scn, o, v, live, kinds, facets=False):
+def assert_card_shade_variants(scn, o, v, live, kinds, facets=False,
+                               glass=True):
     """On the card: every shade variant (local, carry, escalate) against
     its twin on the twin's closest hits of (o, v), at the shading bars,
     and each launch counted once under its mode, its point / spot lights
-    and (``facets``) its facet families."""
+    and (``facets``) its facet families; with ``glass`` some lane taints
+    (the scene's transparent material is hit)."""
     from ndt_tpu_torch.render.kernels import (cull_lists, launch_counts,
                                               shade_carry, shade_carry_ref,
                                               shade_local, shade_local_ref,
@@ -483,7 +549,7 @@ def assert_card_shade_variants(scn, o, v, live, kinds, facets=False):
                                        rtol=0)
         if escalate:
             assert (got[6] == ref[6])[lv].mean() >= NXT_AGREE
-            assert ref[6][lv].any()                 # the glass taints
+            assert ref[6][lv].any() == glass        # the glass taints
     expect = {"shade_local": 1, "shade_carry": 1, "shade_escalate": 1,
               "shade_point": 3 * ("p" in kinds), "shade_spot": 3 * ("s" in kinds),
               "shade_facets": 3 * facets}

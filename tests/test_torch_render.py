@@ -87,11 +87,14 @@ def test_balls_band_matches_c_golden():
 
 def test_port_renders_without_jax():
     """A fresh interpreter imports the port, sets up balls, anim6d, the
-    built-in test scene, random "20", infinite4d and a DISK + RECT area
-    scene, renders each at 16x12 on the CPU (infinite4d and the area
-    scene on the fused and the unfused branch), and has loaded no module
-    of the JAX package (``ndt_tpu`` or ``ndt_tpu.*``), nor jax or
-    flax."""
+    built-in test scene, random "20", infinite4d, a DISK + RECT area
+    scene, empty, hypercube (its default cluster and 'hcube'),
+    hypercube-points, nelder-mead and cluster5d (also regrouped by
+    Scene.cluster), renders each at 16x12 on the CPU (infinite4d and the
+    area scene on the fused and the unfused branch), compiles random "600"
+    (the budgeted kd build; its CPU twins take minutes a frame), and has
+    loaded no module of the JAX package (``ndt_tpu`` or ``ndt_tpu.*``),
+    nor jax or flax."""
     code = (
         "import sys, numpy as np\n"
         "from ndt_tpu_torch.scene import Scene\n"
@@ -119,17 +122,37 @@ def test_port_renders_without_jax():
         "('random', 5, 0, 1, '20', True), "
         "('infinite4d', 4, 0, 1, None, True), "
         "('infinite4d', 4, 0, 1, None, False), "
-        "('area', 4, 0, 1, None, True), ('area', 4, 0, 1, None, False)):\n"
+        "('area', 4, 0, 1, None, True), ('area', 4, 0, 1, None, False), "
+        "('empty', 4, 0, 300, None, True), "
+        "('hypercube', 4, 10, 2400, None, True), "
+        "('hypercube', 4, 0, 1, 'hcube', True), "
+        "('hypercube-points', 6, 0, 300, None, True), "
+        "('nelder-mead', 3, 12, 410, None, True), "
+        "('cluster5d', 5, 0, 1, None, True), "
+        "('cluster5d', 5, 0, 1, 'k3', True)):\n"
         "    engine._FUSED_SHADOW = fused\n"
         "    if name == 'area':\n"
         "        scn = area()\n"
         "    else:\n"
         "        scn = Scene(name, dim)\n"
-        "        get_scene(name).scene_setup(scn, dim, frame, frames, cfg)\n"
+        "        mod = get_scene(name)\n"
+        "        mod.scene_setup(scn, dim, frame, frames, cfg)\n"
+        "        if hasattr(mod, 'scene_cleanup'):\n"
+        "            mod.scene_cleanup()\n"
+        "    if cfg == 'k3':\n"
+        "        scn.cluster(3)\n"
         "    img, _, rays = render_frame(scn, RenderOptions(width=16, "
         "height=12), device='cpu')\n"
         "    assert img.shape == (12, 16, 3) and np.isfinite(img).all()\n"
         "    assert rays > 0\n"
+        "import warnings\n"
+        "from ndt_tpu_torch.scene import compile_scene, to_device\n"
+        "scn = Scene('random', 5)\n"
+        "get_scene('random').scene_setup(scn, 5, 0, 1, '600')\n"
+        "with warnings.catch_warnings():\n"
+        "    warnings.simplefilter('ignore', RuntimeWarning)\n"
+        "    sd = to_device(compile_scene(scn), 'cpu')\n"
+        "assert sd.n_total == 10533 and sd.b_gate == 8\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'ndt_tpu') "
         "or m.startswith(('jax.', 'flax.', 'ndt_tpu.'))]\n"
         "assert not bad, bad\n"

@@ -150,17 +150,32 @@ def test_seeded_lit_scene_port_build_equals_jax_build(dim, flat,
     assert mine["qgt"].shape[1] > 0 and mine["qaxes"].shape[1] == flat
 
 
-def test_gated_scenes_past_the_exact_kd_build_raise():
-    from ndt_tpu_torch.scene import Scene, compile_scene
+def test_gated_scenes_past_the_exact_kd_build_raise(monkeypatch):
+    """A gated scene of 258 kd items, past the exact build's cap of 256,
+    compiles through the budgeted kd build: its gate tables (and every
+    other kernel table) equal the JAX compile's to the bit.  Without the
+    host library the compile raises, never falling back to per-item
+    boxes."""
+    import warnings
 
-    scn = Scene("many", 3)
-    for i in range(257):
-        s = scn.add_object("sphere")
-        s.add_pos(np.array([i * 3.0, 0, 0])).add_size(1.0)
-    o = scn.add_object("orthotope")
-    o.add_pos(np.zeros(3)).add_dir(np.array([1.0, 0, 0])).add_flag(1)
-    with pytest.raises(NotImplementedError, match="kd items"):
-        compile_scene(scn)
+    from ndt_tpu.scene.compile import compile_scene as jax_compile
+    from ndt_tpu_torch import native
+    from ndt_tpu_torch.scene import compile_scene, scene_from_numpy
+    from ndt_tpu_torch.scene.compile import pack_tables
+
+    from _torch_common import many_items_scene
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        jsd = jax_compile(many_items_scene(), np.float32)
+        psd = compile_scene(many_items_scene(port=True), np.float32)
+    mine, ref = pack_tables(psd), pack_tables(scene_from_numpy(jsd))
+    for name in mine:
+        np.testing.assert_array_equal(mine[name], ref[name], name)
+    assert mine["qgt"].shape[1] > 0
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    with pytest.raises(RuntimeError, match="host library"):
+        compile_scene(many_items_scene(port=True))
 
 
 # --------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 """Where the time of one ndt_tpu_torch frame goes, on one CUDA card.
 
     python3 tools/profile_frame.py [--scene balls|anim6d|test|random150|
-                                            infinite4d|area]
+                                            infinite4d|area|hypercube|
+                                            hypercube_walls|cluster5d|
+                                            random600]
                                    [--width W --height H] [--unfused]
                                    [--trace PATH]
 
@@ -14,7 +16,12 @@ random "150" 5-D (640x480, the random150_5d bench config: 3891 leaves, the
 early exit); infinite4d 4-D (240x180: three infinite leaves, a point and
 a directional light); or the area scene (640x480: a sphere over a
 reflective floor under a DISK and a RECT light, tests/_torch_common.py
-two_light_scene).
+two_light_scene); hypercube 4-D frame 10 (640x480, the bench's hypercube
+row: a cluster of kd-gated orthotopes, cylinders and spheres, one
+directional light), in its 'walls' config (two 0.95 mirrors:
+hypercube_walls); cluster5d 5-D (640x480: 40 spheres in a cluster, two
+point lights); or random "600" 5-D (640x480, the random600_5d bench config:
+10,533 leaves behind budgeted kd gates, the early exit).
 ``--unfused`` renders on the engine's unfused branch (trace, then
 apply_lights with its stacked shadow_trace / occlusion_trace launches:
 engine._FUSED_SHADOW = False, what NDT_FUSED_SHADOW=0 selects).  Two
@@ -85,7 +92,11 @@ SCENES = {"balls": ("balls", 4, 0, 1500, None, 1920, 1080),
           "test": ("test", 4, 0, 1, None, 640, 480),
           "random150": ("random", 5, 0, 1, "150", 640, 480),
           "infinite4d": ("infinite4d", 4, 0, 1, None, 240, 180),
-          "area": ("area", 4, 0, 1, None, 640, 480)}
+          "area": ("area", 4, 0, 1, None, 640, 480),
+          "hypercube": ("hypercube", 4, 10, 2400, None, 640, 480),
+          "hypercube_walls": ("hypercube", 4, 10, 2400, "walls", 640, 480),
+          "cluster5d": ("cluster5d", 5, 0, 1, None, 640, 480),
+          "random600": ("random", 5, 0, 1, "600", 640, 480)}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -260,7 +271,8 @@ def main():
     H = args.height or SCENES[args.scene][6]
     opts = RenderOptions(width=W, height=H)
     scn = make_scene(args.scene)
-    for _ in range(1 if args.scene in ("anim6d", "test") else 2):
+    for _ in range(1 if args.scene in ("anim6d", "test", "random600")
+                   else 2):
         render_frame(scn, opts, device="cuda")
     torch.cuda.synchronize()
     times = []
