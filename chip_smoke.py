@@ -115,7 +115,26 @@ nonzero with no "ok" line):
      each with its busy share: hypercube f10, hypercube 'walls' f10,
      cluster5d f0 and random "600" f0 (one timed frame), with random600's
      compile_scene host time (median of 3) and the frame's peak device
-     memory.
+     memory;
+  A. the cameras, stereo layouts and Whitted AA on the card against the C
+     goldens, each within the JAX package's own f32 RMSE + 2e-4: the
+     built-in test scene 4-D f0 at 160x120 through the VR and PANO cameras
+     (vFov pi, hFov 2 pi), the side, over and anaglyph layouts (its green
+     channel zero) and -w -a 8,3 (with its refinement levels and
+     resampled share), and rows 560:600 (left eye) and 1685:1725 (right
+     eye) of the 1920x2205 hidef layout;
+  B. the command line at full width through cli.main in a temporary
+     directory, each run with the launch counters set to 0 just before it
+     and read just after: balls 4-D 1080p frames 0-2, the test scene 4-D
+     640x480 -w -q med (bench.py's builtin_qmed) and balls 4-D 1080p
+     -n 4 (adaptive sampling); every written PNG, decoded by the port's
+     reader, equal to the bytes of the frame render_frame returned; the
+     builtin_qmed frame held in the large to the C golden of the plain
+     test 4-D 640x480 frame, the -n 4 frame to the first run's frame 0
+     (mean |diff| bars QMED_BAR, ADAPTIVE_BAR);
+     s/frame with the saves and without, the Whitted levels and resampled
+     share, the adaptive rounds, rays and seconds.  YAML scenes are not
+     run (the card's machine has no PyYAML): a line says so.
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  JAX is never imported.
 
@@ -143,7 +162,6 @@ import subprocess
 import sys
 import time
 import traceback
-import zlib
 
 import numpy as np
 
@@ -175,9 +193,24 @@ JAX_F32_RMSE = {"test_4d_full": 0.0005276095464288421,
                 "cluster5d_full": 0.00047673511310114894,
                 "nelder_mead_f12": 0.009074710907776664,
                 "nelder_mead_f60": 0.0034414604281107135,
-                "random600_rows88_91": 0.07741619002963639}
+                "random600_rows88_91": 0.07741619002963639,
+                "test_vr_full": 0.003962207729732726,
+                "test_pano_full": 0.0,
+                "test_side_full": 0.0012744050568653884,
+                "test_over_full": 0.00011554032372329223,
+                "test_anaglyph_full": 0.000902250829560688,
+                "test_whitted_full": 0.00018414097499321318,
+                "test_hidef_bands": 0.0007918095643913972}
 JAX_SLACK = 2e-4
 TEST_BAND_RMSE = 2e-3    # tests/test_render.py's f32 bar, rows 220:260
+# phase B's bars on the mean |diff| of 8-bit pixels (in 0-1), twice what the
+# same comparison gives with the CPU twins at a smaller size
+# (scripts/cli_frame_bars.py): test 4-D 40x30 -w -q med against the plain
+# frame 6.22e-3, balls 4-D 384x216 -n 4 against the plain frame 4.17e-3
+# (1.30e-2 at 96x54, 8.12e-3 at 192x108: the share of edge pixels falls
+# with the size)
+QMED_BAR = 1.25e-2
+ADAPTIVE_BAR = 8.3e-3
 EXIT_TIE_FRAC = 1e-3     # live hit lanes whose normal comes from a t tie
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
@@ -210,62 +243,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 }
 
 
-def read_png_rgb(path):
-    """[H, W, 3] uint8 of an 8-bit RGB / RGBA non-interlaced PNG."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG")
-    pos, idat, hdr = 8, [], None
-    while pos < len(data):
-        n = int.from_bytes(data[pos:pos + 4], "big")
-        kind = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            hdr = body
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    w, h = int.from_bytes(hdr[0:4], "big"), int.from_bytes(hdr[4:8], "big")
-    depth, ctype, interlace = hdr[8], hdr[9], hdr[12]
-    if depth != 8 or ctype not in (2, 6) or interlace:
-        raise ValueError(f"{path}: unsupported PNG (depth {depth}, "
-                         f"color type {ctype}, interlace {interlace})")
-    bpp = 3 if ctype == 2 else 4
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw.reshape(h, 1 + w * bpp)
-    out = np.zeros((h, w * bpp), np.int32)
-    prev = np.zeros(w * bpp, np.int32)
-    for y in range(h):
-        ftype, line = raw[y, 0], raw[y, 1:].astype(np.int32)
-        if ftype == 0:
-            cur = line
-        elif ftype == 2:
-            cur = (line + prev) & 255
-        else:
-            cur = np.zeros_like(line)
-            for x in range(w * bpp):
-                a = cur[x - bpp] if x >= bpp else 0
-                b = prev[x]
-                c = prev[x - bpp] if x >= bpp else 0
-                if ftype == 1:
-                    pred = a
-                elif ftype == 3:
-                    pred = (a + b) >> 1
-                else:                       # 4: Paeth
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = a if pa <= pb and pa <= pc else (
-                        b if pb <= pc else c)
-                cur[x] = (line[x] + pred) & 255
-        out[y] = cur
-        prev = cur
-    return out.reshape(h, w, bpp)[..., :3].astype(np.uint8)
-
-
 def golden(name):
+    from ndt_tpu_torch.image_io import read_png_rgb
+
     return read_png_rgb(os.path.join(GOLDENS, name)).astype(np.float64) / 255
 
 
@@ -884,7 +864,8 @@ def shade_bound(sd, base, carry, mode, kw, need):
     outs = (R * 12 if mode == "local" else
             2 * R * D * 4 + R * 29 + (R if mode == "escalate" else 0))
     nbytes = (call_bytes(o, v, t, mat, nrm, props, lvec)
-              + (call_bytes(kw["area"]) if kw else 0)
+              + (call_bytes(kw["area"]) if kw.get("area") is not None
+                 else 0)
               + sum(call_bytes(*c) for c in culls)
               + table_bytes(sd) + outs
               + (0 if mode == "local" else call_bytes(*carry)))
@@ -1341,7 +1322,27 @@ def phase_kernels(torch, K, results, baseline=()):
                           "shade (local)": "local",
                           "shade (escalate)": "escalate"}, results, label)
         ok &= check_walks(torch, K, scn, 640, 480, results, label, walk)
+        if name.startswith("random600"):
+            time_random600_shade(torch, K, sd, o, v, live, label)
     return ok
+
+
+def time_random600_shade(torch, K, sd, o, v, live, label):
+    """The shade_point row at random600's shape: its frame's chain
+    launches, the escalate mode (the probe keeps the frame on the
+    escalating chain) on its 307200 primary rays and on their first
+    bounce, each the wrapper's call and the launch alone, with its bound
+    and the share of (lane, light) pairs that need a walk.  Phase 5 times
+    a stack-tail launch of the frame (time_tail) and counts its
+    launches."""
+    aux = torch.full((o.shape[0],), -1, dtype=torch.int32, device="cuda")
+    for stage in ("primary", "first bounce"):
+        got = K.trace_closest(*trace_args(K, sd, o, v, live, aux))
+        base, carry, kw = shade_inputs(torch, K, sd, o, v, live, *got)
+        time_shade(K, sd, label, stage, "shade_point (escalate)", base,
+                   carry, kw, "escalate", live, ())
+        o, v, _, _, _, live = K.shade_carry(*(base + carry), **kw)[:6]
+        o, v = o.contiguous(), v.contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -1517,7 +1518,7 @@ def quiet(fn, *a, **k):
 def phase_golden(torch, K, card, results):
     """Phase 4: balls 640x480, anim6d 160x120 f0-f3 and lights3d 200x150
     (colour and depth) on the card against the C goldens."""
-    from ndt_tpu_torch.image import linear_to_bytes, normalize_depth
+    from ndt_tpu_torch.image_io import linear_to_bytes, normalize_depth
     from ndt_tpu_torch.render.engine import (RenderOptions, _pixel_grid,
                                              render_frame, render_tile)
 
@@ -1634,7 +1635,7 @@ def phase_unfused_golden(torch, fused):
     2e-4); balls and test 4-D 640x480 unfused within their fused frames'
     bars and against those frames; the area scene's two branches at one
     seed; the area lights' penumbra."""
-    from ndt_tpu_torch.image import linear_to_bytes
+    from ndt_tpu_torch.image_io import linear_to_bytes
     from ndt_tpu_torch.render.engine import RenderOptions, render_frame
 
     ok = True
@@ -1759,7 +1760,7 @@ REGISTRY_GOLDENS = (
 def card_band(torch, scn, W, H, rows):
     """Rows ``rows`` of a W x H frame rendered alone on the card
     (render_tile), as bytes / 255, and the rays it traced."""
-    from ndt_tpu_torch.image import linear_to_bytes
+    from ndt_tpu_torch.image_io import linear_to_bytes
     from ndt_tpu_torch.render.engine import (RenderOptions, _pixel_grid,
                                              render_tile)
 
@@ -1779,7 +1780,7 @@ def phase_registry(torch, card):
     within the JAX package's own f32 RMSE + 2e-4 (random600: the reference
     is not C-exact on that band); cluster5d regrouped by Scene.cluster(3)
     equal to the plain frame."""
-    from ndt_tpu_torch.image import linear_to_bytes
+    from ndt_tpu_torch.image_io import linear_to_bytes
     from ndt_tpu_torch.render.engine import RenderOptions, render_frame
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -2004,13 +2005,13 @@ def time_tail(K, label, shade_sizes, baseline):
     _, a, k = tail[-1]
     eq = exact_diff(K.shade_local(*a, **k), K.shade_local_ref(*a, **k))
     times = time_kernel(K, "local", a, None, k, baseline)
-    _, o, v, t, _, nrm, _, lvec, _, kinds, _ = a
-    need = K.shade_walks_needed(o, v, t, nrm, lvec, kinds, None,
-                                k.get("area"))
-    print(f"[frame] {label} stack-tail shade_local launch at {o.shape[0]} "
+    need, share = walk_need(K, a, "local", None, k)
+    bms, by, nbytes, ops = shade_bound(a[0], a, None, "local", k, need)
+    print(f"[frame] {label} stack-tail shade_local launch at {a[1].shape[0]} "
           f"rays: every output max |diff| {eq:.3e} against the twin; "
-          f"{timing_line(times)}, pairs needing a walk "
-          f"{float(need.double().mean()):.4f}")
+          f"{timing_line(times)}, pairs needing a walk {share:.4f}, bound "
+          f"{bms:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} "
+          f"GFLOP)")
     if eq:
         raise RuntimeError(f"{label}: the stack-tail launch differs from "
                            "its twin")
@@ -2124,7 +2125,7 @@ def registry_frames(torch, K, card, results):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     ok &= timed_frames(torch, K, r600, opts, (), results,
-                       "random600 5-D f0", card, reps=1,
+                       "random600 5-D f0", card, reps=1, sizes=True,
                        also=("trace_gated", "trace_facets", "trace_early_exit",
                              "shade_facets", "shade_point"))
     peak = torch.cuda.max_memory_allocated()
@@ -2133,6 +2134,248 @@ def registry_frames(torch, K, card, results):
           f"{peak / mib:.1f} MiB allocated by torch ({(peak - base) / mib:.1f}"
           f" MiB above the {base / mib:.1f} MiB held before the frames)")
     ok &= busy_share(r600, opts, "random600 5-D f0")
+    return ok
+
+# --------------------------------------------------------------------------
+# phase A: the cameras, stereo layouts and Whitted AA against the C goldens
+
+# key, RenderOptions fields, camera type (-v s / -v c: vFov pi, hFov 2 pi)
+LAYOUT_GOLDENS = (
+    ("test_vr_full", {}, "VR", "test_vr_4d_160x120_f0.png"),
+    ("test_pano_full", {}, "PANO", "test_pano_4d_160x120_f0.png"),
+    ("test_side_full", dict(stereo="side"), None,
+     "test_side_4d_160x120_f0.png"),
+    ("test_over_full", dict(stereo="over"), None,
+     "test_over_4d_160x120_f0.png"),
+    ("test_anaglyph_full", dict(stereo="anaglyph"), None,
+     "test_anaglyph_4d_160x120_f0.png"),
+    ("test_whitted_full", dict(whitted=True, aa_diff=8, aa_depth=3), None,
+     "test_whitted_4d_160x120_f0.png"),
+)
+# the hidef golden's bands: rows j0:j1 of the 1920x2205 frame, the eye's
+# first row, the eye
+HIDEF_BANDS = ((560, 600, 0, "left"), (1685, 1725, 1125, "right"))
+
+
+def refine_summary(history, pixels):
+    """The Whitted levels and adaptive rounds of the last render_frame
+    (adaptive.history): per kind its count, points, rays and seconds and
+    the points of its first levels or rounds; for Whitted the resampled
+    share of the frame's pixels (the first refinement level renders five
+    midpoints per flagged pixel)."""
+    out = []
+    for kind, unit in (("corners", "grids"), ("whitted", "levels"),
+                       ("adaptive", "rounds")):
+        recs = [r for r in history if r["kind"] == kind]
+        if not recs:
+            continue
+        pts = [r["points"] for r in recs]
+        line = (f"{kind}: {len(recs)} {unit}, {sum(pts)} points, "
+                f"{sum(r['rays'] for r in recs)} rays, "
+                f"{sum(r['seconds'] for r in recs):.3f} s")
+        if kind != "corners":
+            line += f", points per {unit[:-1]} {pts[:12]}"
+            line += " ..." if len(pts) > 12 else ""
+        if kind == "whitted":
+            flagged = sum(r["points"] for r in recs if r["index"] == 1) // 5
+            line += (f", resampled {flagged} of {pixels} pixels = "
+                     f"{flagged / pixels:.4f}")
+        out.append(line)
+    return "; ".join(out)
+
+
+def phase_layouts(torch, card):
+    """Phase A: the built-in test scene 4-D f0 at 160x120 through the VR and
+    PANO cameras, the side, over and anaglyph layouts and Whitted AA
+    (-w -a 8,3), each the full frame, and the hidef layout's rows 560:600
+    (left eye) and 1685:1725 (right eye) of 1920x2205, on the card against
+    the C goldens, each within the JAX package's own f32 RMSE + 2e-4."""
+    from ndt_tpu_torch.camera import CameraType
+    from ndt_tpu_torch.image_io import linear_to_bytes
+    from ndt_tpu_torch.render import adaptive
+    from ndt_tpu_torch.render.engine import (RenderOptions, frame_camera,
+                                             render_frame, render_tile)
+    from ndt_tpu_torch.scene import compile_scene, to_device
+
+    ok = True
+
+    def check(key, mine, ref, what, t0, rays, extra=""):
+        err = rmse(mine, ref)
+        bar = JAX_F32_RMSE[key] + JAX_SLACK
+        fok = bool(np.isfinite(mine).all()) and err <= bar
+        print(f"[layout] test 4-D f0 {what}: RMSE {err:.3e} (bar {bar:.3e}: "
+              f"the JAX package's f32 {JAX_F32_RMSE[key]:.3e} + {JAX_SLACK}) "
+              f"{'ok' if fok else 'FAIL'}; {rays} rays, "
+              f"{time.perf_counter() - t0:.2f} s on {card}{extra}")
+        return fok
+
+    for key, kw, cam, gold in LAYOUT_GOLDENS:
+        scn = scene("test", 4)
+        if cam is not None:
+            scn.cam.type = CameraType[cam]
+            scn.cam.v_fov, scn.cam.h_fov = np.pi, 2 * np.pi
+        t0 = time.perf_counter()
+        img, _, rays = render_frame(scn, RenderOptions(width=160, height=120,
+                                                       **kw))
+        torch.cuda.synchronize()
+        extra = ""
+        if kw.get("whitted"):
+            extra = "; " + refine_summary(adaptive.history, 160 * 120)
+        if kw.get("stereo") == "anaglyph" and np.any(img[..., 1] != 0):
+            print("[layout] anaglyph: the green channel is not zero: FAIL")
+            ok = False
+        what = cam or kw.get("stereo") or "whitted -a 8,3"
+        ok &= check(key, linear_to_bytes(img) / 255.0, golden(gold),
+                    f"{what} 160x120", t0, rays, extra)
+
+    scn = scene("test", 4)
+    opts = RenderOptions(width=1920, height=2205, stereo="hidef")
+    t0 = time.perf_counter()
+    cam = frame_camera(scn, opts, "cuda")
+    sd = to_device(compile_scene(scn), "cuda")
+    xs = np.arange(1920, dtype=np.float32) / 1920 - 0.5
+    bands, rays, ref = [], 0, golden("test_hidef_4d_1920x2205_f0.png")
+    for j0, j1, base, eye in HIDEF_BANDS:
+        jp = np.arange(j0, j1, dtype=np.float32) - base
+        xg, yg = np.meshgrid(xs, -(jp / 1080.0 - 0.5))
+        c, _, n = render_tile(sd, cam,
+                              torch.as_tensor(xg.ravel(), device="cuda"),
+                              torch.as_tensor(yg.ravel(), device="cuda"),
+                              opts, eye=eye)
+        bands.append(linear_to_bytes(c.cpu().numpy().reshape(-1, 1920, 3))
+                     / 255.0)
+        rays += int(n)
+    rows = np.r_[tuple(slice(j0, j1) for j0, j1, _, _ in HIDEF_BANDS)]
+    ok &= check("test_hidef_bands", np.concatenate(bands), ref[rows],
+                "hidef 1920x2205 rows 560:600 (left) + 1685:1725 (right)",
+                t0, rays)
+    return ok
+
+
+# --------------------------------------------------------------------------
+# phase B: the command line at full width
+
+# label, argv, the kernels its path launches, what its first frame is held
+# to in the large: None, a C golden of the same scene without the run's
+# sampling, or the first frame of an earlier run (index into CLI_RUNS),
+# and the bar on the mean |difference| of the 8-bit pixels (in 0-1)
+CLI_RUNS = (
+    ("balls 4-D 1080p f0:2", ["-s", "balls", "-d", "4", "-f", "0:2",
+                              "-r", "1080p"],
+     ("trace_closest", "shade_carry"), None, None),
+    ("test 4-D 640x480 -w -q med (builtin_qmed)",
+     ["-s", "test", "-d", "4", "-f", "0:0", "-r", "640x480", "-w", "-q",
+      "med"],
+     ("trace_gated", "trace_facets", "shade_facets", "shade_point"),
+     "test_4d_640x480_f0.png", QMED_BAR),
+    ("balls 4-D 1080p -n 4 f0", ["-s", "balls", "-d", "4", "-f", "0:0",
+                                 "-r", "1080p", "-n", "4"],
+     ("trace_closest", "shade_carry"), 0, ADAPTIVE_BAR),
+)
+
+
+@contextlib.contextmanager
+def captured_frames(animate):
+    """Keep every frame the animation loop's render_frame returns in the
+    block (animate.render_frame: the name the CLI's frame loop calls),
+    with its seconds (host clock around the call and a device sync)."""
+    import torch
+
+    orig = animate.render_frame
+    frames = []
+
+    def render_frame(*a, **k):
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        frames.append((out, time.perf_counter() - t0))
+        return out
+
+    animate.render_frame = render_frame
+    try:
+        yield frames
+    finally:
+        animate.render_frame = orig
+
+
+def phase_cli(torch, K, card):
+    """Phase B: the three full-width workloads through cli.main in a
+    temporary directory, the PNGs written by the AsyncSaver while the next
+    frame renders, the launch counters set to 0 just before each run and
+    read just after.  Every written PNG, decoded by image_io.read_png_rgb,
+    must equal the bytes of the frame render_frame returned to the CLI in
+    this process, and a run with a reference in CLI_RUNS holds its first
+    frame to it within its bar.  Prints s/frame with the saves (the CLI's
+    wall clock) and without (render_frame's own time), the Whitted levels
+    and the resampled share, and the adaptive rounds with their rays and
+    seconds."""
+    import tempfile
+
+    from ndt_tpu_torch import cli
+    from ndt_tpu_torch.image_io import linear_to_bytes, read_png_rgb
+    from ndt_tpu_torch.render import adaptive, animate
+    from ndt_tpu_torch.scenes import get_scene
+
+    ok = True
+    here = os.getcwd()
+    firsts = []
+    for label, argv, kernels, ref, bar in CLI_RUNS:
+        name = argv[1]
+        mod = get_scene(name)
+        first, last = (int(x) for x in argv[argv.index("-f") + 1].split(":"))
+        res = argv[argv.index("-r") + 1]
+        W, H = cli.RESOLUTIONS.get(res) or (int(t) for t in res.split("x"))
+        if hasattr(mod, "scene_cleanup"):
+            mod.scene_cleanup()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                K.reset_launch_counts()
+                with captured_frames(animate) as frames:
+                    t0 = time.perf_counter()
+                    rc = quiet(cli.main, argv)
+                    torch.cuda.synchronize()
+                    with_saves = time.perf_counter() - t0
+                launches = {k: K.launch_counts[k] for k in kernels}
+                hist = list(adaptive.history)
+                out = cli.output_dir(name, 4, "", "", W, H)
+                pngs = [read_png_rgb(os.path.join(
+                    out, f"{name}_{W}x{H}_{i:04d}.png"))
+                    for i in range(first, last + 1)]
+            finally:
+                os.chdir(here)
+        if hasattr(mod, "scene_cleanup"):
+            mod.scene_cleanup()
+        equal = len(frames) == len(pngs)
+        for i, ((img, _, rays), secs), png in zip(
+                range(first, last + 1), frames, pngs):
+            diff = int((linear_to_bytes(img) != png).any(-1).sum())
+            equal &= diff == 0
+            print(f"[cli] {label} frame {i}: the written PNG "
+                  f"{'equals' if diff == 0 else 'DIFFERS from'} the "
+                  f"rendered frame's bytes ({diff} pixels differ); {rays} "
+                  f"rays, render_frame {secs:.4f} s")
+        n = last - first + 1
+        fok = (rc == 0 and equal and all(v > 0 for v in launches.values()))
+        mine = linear_to_bytes(frames[0][0][0]) / 255.0
+        firsts.append(mine)
+        if ref is not None:
+            what = (f"the C golden {ref}" if isinstance(ref, str) else
+                    f"the one-sample frame of '{CLI_RUNS[ref][0]}'")
+            other = golden(ref) if isinstance(ref, str) else firsts[ref]
+            mad = float(np.abs(mine - other).mean())
+            rok = bool(np.isfinite(mine).all()) and mad <= bar
+            fok &= rok
+            print(f"[cli] {label} frame {first} against {what}: mean |diff| "
+                  f"{mad:.4e} (bar {bar:.2e}), RMSE {rmse(mine, other):.4e} "
+                  f"{'ok' if rok else 'FAIL'}")
+        ok &= fok
+        print(f"[cli] {label} on {card}: {with_saves / n:.4f} s/frame through "
+              f"cli.main with the PNG saves ({with_saves:.3f} s for {n} "
+              f"frames), {sum(x for _, x in frames) / n:.4f} s/frame in "
+              f"render_frame without them; launches {launches} in the CLI "
+              f"run; {refine_summary(hist, W * H) or 'no refinement'} "
+              f"{'ok' if fok else 'FAIL'}")
     return ok
 
 
@@ -2178,7 +2421,11 @@ def main(argv=None):
               ("golden", lambda: phase_golden(torch, K, card, results)),
               ("registry", lambda: phase_registry(torch, card)),
               ("frames", lambda: phase_frames(torch, K, card, results,
-                                              baseline)))
+                                              baseline)),
+              ("layouts", lambda: phase_layouts(torch, card)),
+              ("cli", lambda: phase_cli(torch, K, card)))
+    print("[yaml] YAML scenes are not run here: this machine has no PyYAML "
+          "(the CPU tests hold the reader and writer)")
     for label, phase in phases:
         t0 = time.perf_counter()
         ok &= bool(phase())

@@ -13,16 +13,20 @@ Layer map:
   constants     - EPSILON, BIG and the other numeric conventions
   utils         - drand48, Nelder-Mead, bounding spheres, C-exact kd cells
   native        - the host C++ balls stepper and bounding-sphere fit
-  image         - the linear <-> byte pixel model of the output images
+  image_io      - the pixel model, PNG encode / decode, depth maps, the
+                  background saver
   mathnd        - N-D vector math, numpy on the host and torch on the device
   camera        - camera aiming (host) and primary-ray targets (device)
   scene.model   - the Object / Light / Scene builder API
   scene.compile - Scene -> numpy SoA SceneData -> device tables
-  scenes        - the workload scenes (balls, anim6d, lights3d)
+  scene.yaml_io - YAML scene files (PyYAML at first use)
+  scenes        - the workload scenes of the reference's registry
   render        - cull lists, the CUDA kernels with their plain twins, the
-                  fused bounce step and the frame engine (chain and
-                  refraction-stack paths)
+                  fused bounce step, the frame engine (chain and
+                  refraction-stack paths, cameras, stereo layouts),
+                  Whitted and adaptive refinement, the animation loop
   kernels       - nvcc build of csrc/*.cu into a ctypes library
+  cli           - the `ndt` command line (python -m ndt_tpu_torch.cli)
 """
 
 __version__ = "0.1.0"

@@ -42,7 +42,10 @@ class Camera:
     flip_x: bool = False
     flip_y: bool = False
     eye_offset: float = EYE_OFFSET
+    h_fov: float = 2.0 * np.pi
+    v_fov: float = np.pi / 2.0
     focal_distance: float = 100.0
+    aperture_radius: float = 0.0
 
     # derived by aim()
     pos: np.ndarray = None
@@ -201,25 +204,70 @@ class Camera:
             self.leveling = curr
         return self.aim_naive()
 
+    def focus(self, point):
+        """camera_focus (camera.c:358-376): the focal distance is the
+        camera-to-point vector's length along the view axis."""
+        temp = np.asarray(point, dtype=np.float64) - self.pos
+        self.focal_distance = float(mathnd.l2norm(mathnd.proj(temp,
+                                                              self.local_z)))
+        return self
+
+    def focus_multi(self, points, near_padding=0.0, far_padding=0.0,
+                    confusion_radius=0.1, img_plane_dist=-1.0):
+        """camera_focus_multi (camera.c:378-479): binary-search the largest
+        aperture that keeps every point within the circle of confusion
+        (the thin-lens equation); sets aperture_radius and
+        focal_distance."""
+        pts = np.asarray(points, dtype=np.float64)
+        dists = mathnd.dist(pts, self.view_point)
+        min_dist = float(dists.min()) - near_padding
+        max_dist = float(dists.max()) + far_padding
+        min_radius, max_radius = 0.0, 1.0 / EPSILON
+        if img_plane_dist < 0.0:
+            img_plane_dist = float(mathnd.dist(self.pos, self.img_orig))
+        while max_radius - min_radius > EPSILON**2:
+            curr = (min_radius + max_radius) / 2.0
+            conf_dist = (img_plane_dist * confusion_radius) / curr
+            min_img = img_plane_dist - conf_dist
+            max_img = img_plane_dist + conf_dist
+            f = 2.0 / (1 / min_dist + 1 / min_img + 1 / max_dist
+                       + 1 / max_img)
+            u1 = 1.0 / (1 / f - 1 / min_img)
+            u2 = 1.0 / (1 / f - 1 / max_img)
+            if u2 < (min_dist - EPSILON) and u1 > (max_dist + EPSILON):
+                min_radius = curr       # in focus: the aperture can grow
+            else:
+                max_radius = curr
+            self.aperture_radius = curr
+            self.focal_distance = 1.0 / (1 / f - 1 / img_plane_dist)
+        return self
+
     def describe(self) -> str:
-        """camera_print (camera.c:583-611), for the planar camera."""
+        """camera_print (camera.c:583-611)."""
         def v(x):
             return tuple(round(float(c), 4) for c in np.asarray(x))
 
         lines = [f"  camera type {int(self.type)}: viewPoint "
                  f"{v(self.view_point)} -> viewTarget {v(self.view_target)}"
                  f", up {v(self.up)}"]
+        if self.type in (CameraType.VR, CameraType.PANO):
+            lines.append(f"    vFov,hFov: {self.v_fov:g},{self.h_fov:g}")
         if self.rotation:
             lines.append(f"    rotation: {self.rotation:g}")
+        if self.aperture_radius > 0:
+            lines.append(f"    aperture radius: {self.aperture_radius:g}, "
+                         f"focal distance: {self.focal_distance:g}")
         if self.prepared:
             lines.append(f"    pos {v(self.pos)}, imgOrig {v(self.img_orig)}")
             lines.append(f"    dirX {v(self.dir_x)}, dirY {v(self.dir_y)}")
         return "\n".join(lines)
 
+    def print(self):
+        print(self.describe())
+
     def data(self, dtype=torch.float32, device="cuda"):
-        """Pack what the planar camera's center-eye rays read into tensors
-        on ``device``, the card unless the caller asks for the CPU (the
-        eyes, VR/PANO angles and aperture come with their ports)."""
+        """Pack the derived state into tensors on ``device``, the card
+        unless the caller asks for the CPU."""
         device = render_device(device)
 
         def t(x):
@@ -229,7 +277,15 @@ class Camera:
         return CameraData(
             cam_type=int(self.type), pos=t(self.pos),
             img_orig=t(self.img_orig), dir_x=t(self.dir_x),
-            dir_y=t(self.dir_y), focal_distance=t(self.focal_distance))
+            dir_y=t(self.dir_y), left_eye=t(self.left_eye),
+            right_eye=t(self.right_eye), local_x=t(self.local_x),
+            local_y=t(self.local_y), local_z=t(self.local_z),
+            h_fov=t(self.h_fov), v_fov=t(self.v_fov),
+            # tan in f64 on the host: f32 rounds pi/2 up, which flips
+            # tan's sign at vFov = pi (the C's tan(M_PI/2) is +1.6e16)
+            tan_half_v=t(np.tan(float(self.v_fov) / 2.0)),
+            focal_distance=t(self.focal_distance),
+            aperture_radius=t(self.aperture_radius))
 
 
 def render_device(device) -> torch.device:
@@ -244,25 +300,46 @@ def render_device(device) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class CameraData:
-    """Device-side camera parameters: [D] vectors and a 0-d scalar."""
+    """Device-side camera parameters: [D] vectors and 0-d scalars."""
 
     cam_type: int
     pos: torch.Tensor
     img_orig: torch.Tensor
     dir_x: torch.Tensor
     dir_y: torch.Tensor
+    left_eye: torch.Tensor
+    right_eye: torch.Tensor
+    local_x: torch.Tensor
+    local_y: torch.Tensor
+    local_z: torch.Tensor
+    h_fov: torch.Tensor
+    v_fov: torch.Tensor
+    tan_half_v: torch.Tensor
     focal_distance: torch.Tensor
+    aperture_radius: torch.Tensor
 
 
 def target_point(cam: CameraData, x, y, dist):
     """camera_target_point (camera.c:504-581): map normalized screen coords
-    ``x, y`` ([R] tensors in [-0.5, 0.5]) to points on the focal surface.
-    Only the planar NORMAL camera is ported."""
-    if cam.cam_type != int(CameraType.NORMAL):
-        raise NotImplementedError(
-            "VR/PANO cameras are not ported yet (ROADMAP Queue 1: "
-            "stereo/VR)")
-    # the adds fuse the products, as XLA computes the JAX reference's f32
+    ``x, y`` ([R] tensors in [-0.5, 0.5]) to points on the focal surface:
+    a sphere (VR), a cylinder (PANO) or the planar screen scaled onto the
+    focal sphere (NORMAL).  The adds fuse the products, as XLA computes
+    the JAX reference's f32."""
+    if cam.cam_type in (int(CameraType.VR), int(CameraType.PANO)):
+        azi = x * cam.h_fov
+        if cam.cam_type == int(CameraType.VR):
+            alt = y * cam.v_fov
+            view_x = dist * torch.sin(azi) * torch.cos(alt)
+            view_y = dist * torch.sin(alt)
+            view_z = dist * torch.cos(azi) * torch.cos(alt)
+        else:
+            y_size = 2.0 * cam.tan_half_v * dist    # camera.c:540
+            view_x = dist * torch.sin(azi)
+            view_y = y * y_size
+            view_z = dist * torch.cos(azi)
+        pt = mathnd.fma(cam.local_x, view_x[..., None], cam.pos)
+        pt = mathnd.fma(cam.local_y, view_y[..., None], pt)
+        return mathnd.fma(cam.local_z, view_z[..., None], pt)
     pixel = mathnd.fma(cam.dir_y, y[..., None],
                        mathnd.fma(cam.dir_x, x[..., None], cam.img_orig))
     screen_dist = mathnd.dist(cam.img_orig, cam.pos)

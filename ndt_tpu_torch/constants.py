@@ -12,6 +12,10 @@ EPSILON2 = EPSILON * EPSILON
 # branch falls below 1/512 (ndt.c:336-337).
 MIN_PIXEL_FRAC = 1.0 / 512.0
 
+# Adaptive per-pixel sampling bounds (ndt.c:474-476).
+MAX_SAMPLES = 10000
+MAX_SAMPLE_DIFF = 1.0 / 256.0
+
 # Stereo eye separation (camera.h:11).
 EYE_OFFSET = 0.125
 

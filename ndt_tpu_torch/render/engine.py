@@ -29,9 +29,15 @@ host-chunked while loops:
   shades it (``trace.trace_fused``: the shade kernel's local colour), and
   pushes its reflection and refraction children (ndt.c:394-430).
 
-Not ported yet (ROADMAP Queue 1): adaptive sampling and Whitted
-anti-aliasing, stereo / VR / PANO layouts, jitter and depth of field,
-multi-device rendering.
+Primary rays come from the center eye or a stereo eye, through the
+planar, VR or PANO camera, with sub-pixel jitter and depth-of-field
+aperture samples drawn from the frame's generator when ``opts.samples >
+1`` (``gen_rays``).  ``render_frame`` assembles the mono, side, over,
+anaglyph and hidef layouts, each optionally through Whitted corner-grid
+anti-aliasing (``render/adaptive.py``); ``opts.samples > 1`` runs the
+per-pixel convergence loop (``opts.adaptive``) or a plain average.
+
+Not ported yet (ROADMAP Queue 1): the f64 path, multi-device rendering.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ import numpy as np
 import torch
 
 from ndt_tpu_torch import mathnd
-from ndt_tpu_torch.camera import CameraData, render_device, target_point
+from ndt_tpu_torch.camera import (CameraData, CameraType, render_device,
+                                  target_point)
 from ndt_tpu_torch.constants import BIG, EPSILON, MIN_PIXEL_FRAC
 from ndt_tpu_torch.render.shade import apply_lights
 from ndt_tpu_torch.render.trace import (fused_light_info, trace,
@@ -71,27 +78,64 @@ _FUSED_SHADOW = os.environ.get("NDT_FUSED_SHADOW", "1") != "0"
 
 @dataclasses.dataclass(frozen=True)
 class RenderOptions:
-    """The CLI flags that shape a render (engine.RenderOptions), for the
-    ported mono, one-sample, float32 frames."""
+    """The CLI flags that shape a render (engine.RenderOptions), for
+    float32 frames on one device."""
 
     width: int = 1920
     height: int = 1080
+    samples: int = 1                 # -n
     max_optic_depth: int = 128       # -l
+    stereo: str = "mono"             # -m: mono|side|over|anaglyph|hidef
     specular: bool = True            # -p disables
     record_depth: bool = False       # -z
+    whitted: bool = False            # -w recursive anti-aliasing
+    aa_diff: int = 20                # -a diff,depth
+    aa_depth: int = 4
+    adaptive: bool = True            # per-pixel convergence sampling (the
+                                     # C always adapts; it acts only with
+                                     # jittered samples > 1)
     stack_size: int = 16             # pending refraction branches per ray
-    seed: int = 0                    # area-light sampling
+    seed: int = 0                    # the frame generator's seed
 
 
 # --------------------------------------------------------------------------
 # primary rays (get_pixel_color, ndt.c:456-576)
 
 
-def gen_rays(cam: CameraData, x, y):
-    """x, y: [R] normalized screen coords.  Returns (o, v), v unit: the
-    center eye, no jitter, no aperture (engine.gen_rays)."""
-    virt = cam.pos.expand(x.shape + cam.pos.shape).contiguous()
+def gen_rays(cam: CameraData, x, y, eye="center", jitter=None,
+             aperture=False, gen=None):
+    """x, y: [R] normalized screen coords.  Returns (o, v), v unit.
+
+    ``eye``: "center", "left" or "right" (a VR / PANO eye turns with the
+    azimuth about the camera, ndt.c:519-525).  ``jitter``: None, or the
+    (width, height) of the frame whose pixels get a uniform sub-pixel
+    offset (ndt.c:505-514).  ``aperture``: depth-of-field sampling of the
+    lens disk (ndt.c:527-542).  Both draw from ``gen``, a torch.Generator
+    on the rays' device."""
+    eyes = {"left": cam.left_eye, "right": cam.right_eye,
+            "center": cam.pos}
+    virt = eyes[eye].expand(x.shape + cam.pos.shape).contiguous()
+    if jitter is not None:
+        width, height = jitter
+        x = x + torch.rand(x.shape, generator=gen, device=x.device,
+                           dtype=x.dtype) / width
+        y = y + torch.rand(y.shape, generator=gen, device=y.device,
+                           dtype=y.dtype) / height
     pixel = target_point(cam, x, y, cam.focal_distance)
+    if cam.cam_type in (int(CameraType.VR), int(CameraType.PANO)) \
+            and eye != "center":
+        virt = mathnd.rotate2(virt, cam.pos[None, :], cam.local_x[None, :],
+                              cam.local_z[None, :], x * cam.h_fov)
+    if aperture:
+        r = mathnd.sqrt(torch.rand(x.shape, generator=gen, device=x.device,
+                                   dtype=x.dtype))
+        th = torch.rand(x.shape, generator=gen, device=x.device,
+                        dtype=x.dtype) * (2.0 * np.pi)
+        ax = r * torch.cos(th) * cam.aperture_radius
+        ay = r * torch.sin(th) * cam.aperture_radius
+        virt = mathnd.fma(cam.local_y[None, :], ay[:, None],
+                          mathnd.fma(cam.local_x[None, :], ax[:, None],
+                                     virt))
     return virt, mathnd.unitize(pixel - virt)
 
 
@@ -349,10 +393,46 @@ def render_rays_chunked(scn: DeviceScene, o, v, opts: RenderOptions,
 
 
 def render_tile(scn: DeviceScene, cam: CameraData, x, y,
-                opts: RenderOptions, gen=None):
-    """Render one tile of pixels: (color [R,3], depth [R], rays)."""
-    o, v = gen_rays(cam, x, y)
-    return render_rays_chunked(scn, o, v, opts, gen)
+                opts: RenderOptions, gen=None, eye="center"):
+    """Render one tile of pixels from ``eye``: (color [R,3], depth [R],
+    rays).  With opts.samples > 1 every sample is jittered and
+    aperture-sampled and the tile is their plain average
+    (engine.render_tile)."""
+    if gen is None:
+        gen = frame_generator(x.device, opts)
+    if opts.samples == 1:
+        o, v = gen_rays(cam, x, y, eye)
+        return render_rays_chunked(scn, o, v, opts, gen)
+    jitter = (opts.width, opts.height)
+    csum = dsum = nsum = None
+    for _ in range(opts.samples):
+        o, v = gen_rays(cam, x, y, eye, jitter, True, gen)
+        c, d, n = render_rays_chunked(scn, o, v, opts, gen)
+        csum = c if csum is None else csum + c
+        dsum = d if dsum is None else dsum + d
+        nsum = n if nsum is None else nsum + n
+    return csum / opts.samples, dsum / opts.samples, nsum
+
+
+def render_points(scn: DeviceScene, cam: CameraData, x, y,
+                  opts: RenderOptions, eye="center", jitter=None,
+                  aperture=False, gen=None):
+    """One sample of each screen point ``x, y`` ([P] float32 numpy) from
+    ``eye``, _TILE rays per bounce-loop batch: (color [P, 3], depth [P])
+    as numpy and the rays traced.  ``jitter`` and ``aperture`` as in
+    gen_rays.  The refinement levels and the adaptive rounds render
+    through it."""
+    colors, depths, nrays = [], [], 0
+    for t0 in range(0, len(x), _TILE):
+        o, v = gen_rays(cam, torch.as_tensor(x[t0:t0 + _TILE],
+                                             device=scn.device),
+                        torch.as_tensor(y[t0:t0 + _TILE], device=scn.device),
+                        eye, jitter, aperture, gen)
+        c, d, n = render_rays_chunked(scn, o, v, opts, gen)
+        colors.append(c.cpu().numpy())
+        depths.append(d.cpu().numpy())
+        nrays += int(n)
+    return np.concatenate(colors), np.concatenate(depths), nrays
 
 
 # --------------------------------------------------------------------------
@@ -381,14 +461,22 @@ def _blocked_perm(width, height, bw=64, bh=32):
 
 
 def _render_grid(scn: DeviceScene, cam: CameraData, xx, yy,
-                 opts: RenderOptions, gen=None):
-    """Render a pixel grid in screen-blocked order, _TILE rays per
-    bounce-loop batch; returns (color [P,3], depth [P]) as numpy and the
-    ray count.  The last batch is padded with center-screen rays, which
-    are traced and counted like the JAX engine's."""
+                 opts: RenderOptions, eye="center", gen=None):
+    """Render a pixel grid from ``eye`` in screen-blocked order, _TILE rays
+    per bounce-loop batch; returns (color [P,3], depth [P]) as numpy and
+    the ray count.  The last batch is padded with center-screen rays,
+    which are traced and counted like the JAX engine's.  With
+    opts.samples > 1 and opts.adaptive the grid runs the per-pixel
+    convergence loop instead (adaptive.render_adaptive_samples)."""
     P = xx.size
     h, w = xx.shape
     perm, inv = _blocked_perm(w, h)
+    if opts.adaptive and opts.samples > 1:
+        from ndt_tpu_torch.render.adaptive import render_adaptive_samples
+
+        c, d, n = render_adaptive_samples(
+            scn, cam, xx.ravel()[perm], yy.ravel()[perm], opts, eye, gen)
+        return c[inv], d[inv], n
     tile = min(_TILE, max(1, P))
     pad = (-P) % tile
     xf = np.concatenate([xx.ravel()[perm], np.zeros(pad, xx.dtype)])
@@ -397,7 +485,7 @@ def _render_grid(scn: DeviceScene, cam: CameraData, xx, yy,
     for t0 in range(0, P + pad, tile):
         x = torch.as_tensor(xf[t0:t0 + tile], device=scn.device)
         y = torch.as_tensor(yf[t0:t0 + tile], device=scn.device)
-        c, d, n = render_tile(scn, cam, x, y, opts, gen)
+        c, d, n = render_tile(scn, cam, x, y, opts, gen, eye)
         colors.append(c.cpu().numpy())
         depths.append(d.cpu().numpy())
         nrays += int(n)
@@ -406,24 +494,118 @@ def _render_grid(scn: DeviceScene, cam: CameraData, xx, yy,
     return color, depth, nrays
 
 
+def frame_camera(scene_host, opts: RenderOptions, device):
+    """The aimed camera's CameraData on ``device`` with the screen's X
+    direction aspect-corrected, as render_image does every frame
+    (ndt.c:926-930); hidef takes the 1080-row aspect of one eye."""
+    if not scene_host.cam.prepared:
+        scene_host.cam.aim()
+    cam = scene_host.cam.data(dtype=torch.float32, device=device)
+    aspect = opts.width / (1080.0 if opts.stereo == "hidef" else opts.height)
+    return dataclasses.replace(
+        cam, dir_x=cam.dir_x * float(np.float32(aspect)))
+
+
+# the eye panels of the stereo layouts (ndt.c:590-630): per eye, the rows
+# and columns of the frame it fills, and its Whitted corner grid's affine
+# screen map (ax, bx, ay, by): x = ax * gx + bx, y = ay * gy + by
+def _panels(W, H, stereo):
+    mono = (1.0 / (W + 1), -0.5, -1.0 / (H + 1), 0.5)
+    if stereo == "mono":
+        return [("center", slice(0, H), slice(0, W), mono)]
+    if stereo == "side":
+        amap = (2.0 / (W + 1), -0.5, -1.0 / (H + 1), 0.5)
+        return [("left", slice(0, H), slice(0, W // 2), amap),
+                ("right", slice(0, H), slice(W // 2, W), amap)]
+    if stereo == "over":
+        amap = (1.0 / (W + 1), -0.5, -2.0 / (H + 1), 0.5)
+        return [("left", slice(0, H // 2), slice(0, W), amap),
+                ("right", slice(H // 2, H), slice(0, W), amap)]
+    if stereo == "anaglyph":
+        return [("left", slice(0, H), slice(0, W), mono),
+                ("right", slice(0, H), slice(0, W), mono)]
+    if stereo == "hidef":
+        # 1920x2205: rows 0..1079 left, 45 blank rows, 1125..2204 right
+        amap = (1.0 / (W + 1), -0.5, -1.0 / 1081.0, 0.5)
+        return [("left", slice(0, 1080), slice(0, W), amap),
+                ("right", slice(1125, 2205), slice(0, W), amap)]
+    raise ValueError(f"unknown stereo mode {stereo!r}")
+
+
+def panel_grid(W, H, stereo, eye, rows, cols):
+    """The screen coordinates [h, w] of an eye panel's pixel centers
+    (ndt.c:590-633), computed in float32 as the JAX package's layouts."""
+    dt = np.float32
+    if stereo == "side":
+        xs = (np.arange(cols.stop - cols.start, dtype=dt) / 0.5) / W - 0.5
+        ys = -(np.arange(H, dtype=dt) / H - 0.5)
+    elif stereo == "over":
+        xs = np.arange(W, dtype=dt) / W - 0.5
+        ys = -((np.arange(rows.stop - rows.start, dtype=dt) / 0.5) / H
+               - 0.5)
+    elif stereo == "hidef":
+        xs = np.arange(W, dtype=dt) / W - 0.5
+        jp = np.arange(rows.start, rows.stop, dtype=dt) \
+            - (0 if eye == "left" else 1125)
+        ys = -(jp / 1080.0 - 0.5)
+    else:
+        return _pixel_grid(W, H, dt)
+    return np.meshgrid(xs.astype(dt), ys.astype(dt))
+
+
 def render_frame(scene_host, opts: RenderOptions, device="cuda"):
     """Render a full frame of a host Scene on ``device``: the card unless
     the caller asks for the CPU, where the kernels' plain twins run.
     Returns (img [H, W, 3] linear float32, depth [H, W] or None, rays
-    traced)."""
+    traced).  Every layout renders each eye's panel on its own grid, or
+    with opts.whitted through the corner grid and the refinement of
+    adaptive.whitted_refine under the panel's affine map (the C's -w
+    resamples the frame whatever the stereo mode, ndt.c:1039-1103)."""
+    from ndt_tpu_torch.render import adaptive
+
     device = render_device(device)
-    if not scene_host.cam.prepared:
-        scene_host.cam.aim()
+    cam = frame_camera(scene_host, opts, device)
     scn = to_device(compile_scene(scene_host), device)
-    cam = scene_host.cam.data(dtype=torch.float32, device=device)
-    # render_image aspect-corrects the screen's X direction every frame
-    # (ndt.c:926-930)
-    cam = dataclasses.replace(
-        cam, dir_x=cam.dir_x * float(np.float32(opts.width / opts.height)))
+    gen = frame_generator(device, opts)
+    adaptive.history.clear()
     W, H = opts.width, opts.height
-    xx, yy = _pixel_grid(W, H, np.float32)
-    c, d, rays = _render_grid(scn, cam, xx, yy, opts,
-                              frame_generator(device, opts))
-    img = c.reshape(H, W, 3)
-    dep = d.reshape(H, W)
+    dt = np.float32
+    rays = 0
+    eyes = {}
+    for eye, rows, cols, amap in _panels(W, H, opts.stereo):
+        h, w = rows.stop - rows.start, cols.stop - cols.start
+        if opts.whitted:
+            ax, bx, ay, by = amap
+            gx = np.arange(w + 1, dtype=dt)
+            gy = np.arange(h + 1, dtype=dt)
+            xg, yg = np.meshgrid((ax * gx + bx).astype(dt),
+                                 (ay * gy + by).astype(dt))
+            c, d, n = adaptive.timed(
+                "corners", 0, xg.size,
+                lambda: _render_grid(scn, cam, xg, yg, opts, eye, gen))
+            c, _, extra = adaptive.whitted_refine(
+                scn, cam, c.reshape(h + 1, w + 1, 3), opts, opts.aa_diff,
+                opts.aa_depth, gen, eye, amap, (w, h))
+            d = d.reshape(h + 1, w + 1)[:h, :w]
+            n += extra
+        else:
+            xg, yg = panel_grid(W, H, opts.stereo, eye, rows, cols)
+            c, d, n = _render_grid(scn, cam, xg, yg, opts, eye, gen)
+            c, d = c.reshape(h, w, 3), d.reshape(h, w)
+        eyes[eye] = (rows, cols, c, d)
+        rays += n
+    if opts.stereo == "mono":              # the one panel is the frame
+        _, _, img, dep = eyes["center"]
+        return img, (dep if opts.record_depth else None), rays
+    img = np.zeros((H, W, 3), dt)
+    dep = np.zeros((H, W), dt)
+    if opts.stereo == "anaglyph":
+        luma = np.array([0.299, 0.587, 0.114], dt)
+        img[..., 0] = (eyes["left"][2] * luma).sum(-1)   # ndt.c:643-647
+        img[..., 2] = (eyes["right"][2] * luma).sum(-1)
+        dep[:] = eyes["left"][3]
+    else:
+        for rows, cols, c, d in eyes.values():
+            img[rows, cols] = c
+            dep[rows, cols] = d
     return img, (dep if opts.record_depth else None), rays

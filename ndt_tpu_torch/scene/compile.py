@@ -54,7 +54,8 @@ import torch
 
 from ndt_tpu_torch import mathnd, native
 from ndt_tpu_torch.constants import BIG, EPSILON
-from ndt_tpu_torch.scene.model import LightType, Object, Scene
+from ndt_tpu_torch.scene.model import (LightType, Object, Scene,
+                                      get_type_info)
 from ndt_tpu_torch.utils.kdtree import build_c_exact
 
 NOT_INFINITE = 1 << 30
@@ -264,8 +265,9 @@ def _item_aabb(obj: Object, dim):
 
 
 def _flatten(objects: List[Object], dim: int):
-    """One material per object and its leaves (one, or an hcube's faces,
-    all with the cube's material and kd item), each object with its
+    """One material per object and its leaves (one, an hcube's faces or a
+    custom type's expansion, all with the object's material and kd item),
+    each object with its
     bounding sphere fit (object.c:582-603), plus the kd ITEM list in the
     reference's object_kdlist_add order.
 
@@ -288,9 +290,6 @@ def _flatten(objects: List[Object], dim: int):
             for c in obj.children:
                 walk(c, True)
             return
-        kind = _LEAF_KIND.get(obj.type_name)
-        if kind is None:
-            raise ValueError(f"cannot compile object type {obj.type_name!r}")
         if obj.bounds_radius is None:
             obj.get_bounds()
         infinite = obj.bounds_radius < 0
@@ -301,9 +300,23 @@ def _flatten(objects: List[Object], dim: int):
         if in_cluster and infinite:
             return
         materials.append(obj)
-        mid = len(materials) - 1
-        parts = _hcube_faces(obj) if obj.type_name == "hcube" else [obj]
-        leaves.extend(_Leaf(kind, part, mid, kd_item=item) for part in parts)
+        emit(obj, len(materials) - 1, item)
+
+    def emit(obj: Object, mid: int, item: int):
+        """The leaves of one object: itself, an hcube's faces, or a custom
+        type's expansion (compile.py:346-358), all with material ``mid``
+        and kd item ``item``."""
+        kind = _LEAF_KIND.get(obj.type_name)
+        if kind is not None:
+            parts = _hcube_faces(obj) if obj.type_name == "hcube" else [obj]
+            leaves.extend(_Leaf(kind, part, mid, kd_item=item)
+                          for part in parts)
+            return
+        info = get_type_info(obj.type_name)
+        if info is None or info.expand is None:
+            raise ValueError(f"cannot compile object type {obj.type_name!r}")
+        for sub in info.expand(obj):
+            emit(sub, mid, item)
 
     for obj in objects:
         walk(obj, False)

@@ -27,7 +27,14 @@ class ObjectTypeInfo:
     """Parameter schema for an object type (objects/object.h:12-20):
     how many positions, directions, sizes, flags and sub-objects it needs
     (a count, or a function of the object for types whose counts depend on
-    the dimension or a flag)."""
+    the dimension or a flag).
+
+    A custom type (the dlopen plugin ABI's replacement, objects/stubs.c)
+    registers an ``expand`` function that lowers one object into a list of
+    builtin (or other registered) Objects when the scene compiles, as an
+    hcube becomes orthotope faces; the expanded leaves take the parent's
+    material (hcube.c:244-247).  ``bounding`` optionally gives its
+    bounding spheres; by default they are the expansion's."""
 
     name: str
     n_pos: Union[int, Callable]
@@ -35,6 +42,8 @@ class ObjectTypeInfo:
     n_size: Union[int, Callable]
     n_flag: Union[int, Callable]
     n_obj: Union[int, Callable] = 0
+    expand: Optional[Callable] = None    # f(obj) -> List[Object]
+    bounding: Optional[Callable] = None  # f(obj) -> [(center, radius)]
 
 
 _REGISTRY: Dict[str, ObjectTypeInfo] = {info.name: info for info in (
@@ -59,8 +68,38 @@ def type_info(name: str) -> ObjectTypeInfo:
     return _REGISTRY[name]
 
 
+def register_object_type(info: ObjectTypeInfo):
+    _REGISTRY[info.name] = info
+    return info
+
+
+def get_type_info(name: str) -> Optional[ObjectTypeInfo]:
+    return _REGISTRY.get(name)
+
+
 def object_types() -> List[str]:
+    """registered_types() (object.c:160-183), sorted."""
     return sorted(_REGISTRY.keys())
+
+
+def register_objects(directory: str) -> List[str]:
+    """Import every ``*.py`` of ``directory`` (the plugin directory scan,
+    object.c:125-158; the CLI's ``-o``): each module registers its custom
+    types at import with register_object_type.  Returns the module names
+    loaded, sorted."""
+    import importlib.util
+    import os
+
+    loaded = []
+    for fn in sorted(os.listdir(directory)):
+        if not fn.endswith(".py") or fn.startswith("_"):
+            continue
+        spec = importlib.util.spec_from_file_location(
+            "ndt_user_objects_" + fn[:-3], os.path.join(directory, fn))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        loaded.append(fn[:-3])
+    return loaded
 
 
 class Object:
@@ -214,6 +253,12 @@ class Object:
             return pts
         if t == "cluster":                                      # cluster.c bounding
             return [p for c in self.children for p in c.bounding_points()]
+        info = _REGISTRY.get(t)
+        if info is not None and info.bounding is not None:
+            return info.bounding(self)
+        if info is not None and info.expand is not None:
+            return [p for sub in info.expand(self)
+                    for p in sub.bounding_points()]
         raise ValueError(f"no bounding rule for type {t!r}")
 
     def get_bounds(self):

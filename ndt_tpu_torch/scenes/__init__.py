@@ -4,13 +4,14 @@
     scene_frames(dimensions, config) -> int           (optional)
     scene_cleanup() -> None                           (optional)
 
-where ``scn`` is an ``ndt_tpu_torch.scene.Scene``.  Every scene of the JAX
-package's registry but ``yaml`` (the YAML reader is not ported yet).
+where ``scn`` is an ``ndt_tpu_torch.scene.Scene``: every scene of the JAX
+package's registry.  get_scene also loads a Python scene file by path.
 """
 
 from __future__ import annotations
 
 import importlib
+import importlib.util
 import os
 
 _SCENES = {
@@ -26,6 +27,7 @@ _SCENES = {
     "infinite4d": "ndt_tpu_torch.scenes.infinite4d",
     "anim6d": "ndt_tpu_torch.scenes.anim6d",
     "nelder-mead": "ndt_tpu_torch.scenes.nelder_mead_scene",
+    "yaml": "ndt_tpu_torch.scenes.yaml_scene",
 }
 
 
@@ -35,11 +37,16 @@ def scene_names():
 
 def get_scene(name: str):
     """Resolve a scene module by name ('balls', 'scenes/balls.so',
-    'balls.py')."""
+    'balls.py') or load a Python scene file by its path."""
     base = os.path.basename(name)
     for suffix in (".so", ".py", ".c"):
         if base.endswith(suffix):
             base = base[: -len(suffix)]
     if base in _SCENES:
         return importlib.import_module(_SCENES[base])
+    if os.path.exists(name) and name.endswith(".py"):
+        spec = importlib.util.spec_from_file_location(base, name)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
     raise ValueError(f"unknown scene {name!r}; available: {scene_names()}")

@@ -4,8 +4,8 @@ sphere (with genuinely 6-D offsets that carry it off the camera's visible
 and a 2-flat orthotope over a reflective floor, lit by two point lights.
 4 frames.
 
-Same code as ``ndt_tpu/scenes/anim6d.py`` on the port's scene model (the
-YAML dump of the JAX package is not ported).  The C goldens are
+Same code as ``ndt_tpu/scenes/anim6d.py`` on the port's scene model;
+``write_yaml_frames`` dumps its frames as a YAML stream.  The C goldens are
 ``tests/goldens/anim6d_6d_160x120_f0-3.png``.
 """
 
@@ -78,3 +78,14 @@ def scene_setup(scn: Scene, dimensions, frame, frames, config=None):
     orth.add_flag(2)
     return 1
 
+
+def write_yaml_frames(path: str, dimensions: int = 6):
+    """Dump all frames as a multi-document YAML stream (a YAML-defined 6-D
+    animated scene for the ``yaml`` scene)."""
+    from ndt_tpu_torch.scene.yaml_io import scene_write_yaml
+
+    for i in range(FRAMES):
+        scn = Scene("anim6d", dimensions)
+        scene_setup(scn, dimensions, i, FRAMES)
+        scene_write_yaml(scn, path, append=(i > 0))
+    return FRAMES

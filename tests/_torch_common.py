@@ -329,7 +329,7 @@ def port_band(scn, width, height, rows):
     """Rows ``rows`` of the port's CPU render of an aimed host Scene at
     width x height, as the golden PNGs hold them (bytes / 255), and the
     rays it traced."""
-    from ndt_tpu_torch.image import linear_to_bytes
+    from ndt_tpu_torch.image_io import linear_to_bytes
     from ndt_tpu_torch.render.engine import (RenderOptions, _pixel_grid,
                                              render_tile)
     from ndt_tpu_torch.scene import compile_scene, to_device

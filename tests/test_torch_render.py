@@ -63,7 +63,7 @@ def test_balls_band_matches_c_golden():
     import dataclasses
 
     from conftest import load_golden
-    from ndt_tpu_torch.image import linear_to_bytes
+    from ndt_tpu_torch.image_io import linear_to_bytes
     from ndt_tpu_torch.render.engine import (RenderOptions, _pixel_grid,
                                              render_tile)
     from ndt_tpu_torch.scene import compile_scene, to_device
@@ -91,7 +91,11 @@ def test_port_renders_without_jax():
     scene, empty, hypercube (its default cluster and 'hcube'),
     hypercube-points, nelder-mead and cluster5d (also regrouped by
     Scene.cluster), renders each at 16x12 on the CPU (infinite4d and the
-    area scene on the fused and the unfused branch), compiles random "600"
+    area scene on the fused and the unfused branch), renders the last in
+    the side layout with Whitted AA, in the anaglyph one with adaptive
+    sampling and over / under with plain multisampling, runs the command
+    line (side by side, a PANO camera, depth maps, Whitted AA) and
+    render_animation, imports the YAML modules, compiles random "600"
     (the budgeted kd build; its CPU twins take minutes a frame), and has
     loaded no module of the JAX package (``ndt_tpu`` or ``ndt_tpu.*``),
     nor jax or flax."""
@@ -145,6 +149,27 @@ def test_port_renders_without_jax():
         "height=12), device='cpu')\n"
         "    assert img.shape == (12, 16, 3) and np.isfinite(img).all()\n"
         "    assert rays > 0\n"
+        "import os, tempfile\n"
+        "from ndt_tpu_torch import cli, image_io\n"
+        "from ndt_tpu_torch.render import adaptive, animate\n"
+        "from ndt_tpu_torch.scene import yaml_io\n"
+        "from ndt_tpu_torch.scenes import yaml_scene\n"
+        "from ndt_tpu_torch.utils import timing\n"
+        "for kw in (dict(stereo='side', whitted=True, aa_diff=8, "
+        "aa_depth=1), dict(stereo='anaglyph', samples=2), "
+        "dict(stereo='over', samples=2, adaptive=False)):\n"
+        "    img, _, _ = render_frame(scn, "
+        "RenderOptions(width=16, height=12, **kw), device='cpu')\n"
+        "    assert np.isfinite(img).all()\n"
+        "tmp = tempfile.TemporaryDirectory()\n"
+        "os.chdir(tmp.name)\n"
+        "assert cli.main(['-s', 'balls', '-d', '4', '-r', '16x12', '-f', "
+        "'0:1', '-m', 's', '-v', 'c', '-z', '-w', '-a', '8,1'], "
+        "device='cpu') == 0\n"
+        "res, _, _ = animate.render_animation(get_scene('empty'), 4, 0, 1, "
+        "2, RenderOptions(width=16, height=12), 'anim', device='cpu')\n"
+        "assert [image_io.read_png_rgb(r.path).shape for r in res] == "
+        "[(12, 16, 3)] * 2\n"
         "import warnings\n"
         "from ndt_tpu_torch.scene import compile_scene, to_device\n"
         "scn = Scene('random', 5)\n"

@@ -204,7 +204,7 @@ def test_linear_to_bytes_matches_jax_package(dtype):
     """The port's pixel model equals ndt_tpu.image_io's byte for byte, out
     of range values and the rounding edges included."""
     from ndt_tpu.image_io import linear_to_bytes as ref
-    from ndt_tpu_torch.image import linear_to_bytes
+    from ndt_tpu_torch.image_io import linear_to_bytes
 
     rng = np.random.default_rng(9)
     img = rng.uniform(-0.2, 1.2, (48, 64, 3)).astype(dtype)
@@ -218,7 +218,7 @@ def test_normalize_depth_matches_jax_package():
     """The port's depth-map normalization equals ndt_tpu.image_io's,
     constant maps included."""
     from ndt_tpu.image_io import normalize_depth as ref
-    from ndt_tpu_torch.image import normalize_depth
+    from ndt_tpu_torch.image_io import normalize_depth
 
     rng = np.random.default_rng(3)
     d = np.where(rng.random((48, 64)) < 0.3, 0.0, rng.uniform(0.01, 0.2,

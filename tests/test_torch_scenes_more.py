@@ -40,17 +40,17 @@ def _few_threads():
 
 
 def test_registry_resolves_every_jax_scene_but_yaml():
-    """get_scene resolves every name of the JAX package's registry but
-    'yaml' (the YAML reader is not ported), each to a module with the
-    plugin ABI."""
+    """get_scene resolves every name of the JAX package's registry ('yaml'
+    too, since the YAML reader is ported), each to a module with the
+    plugin ABI; an unknown name raises."""
     from ndt_tpu.scenes import scene_names as jax_names
     from ndt_tpu_torch.scenes import get_scene, scene_names
 
-    assert set(scene_names()) == set(jax_names()) - {"yaml"}
+    assert set(scene_names()) == set(jax_names())
     for name in scene_names():
         assert callable(get_scene(name).scene_setup), name
     with pytest.raises(ValueError):
-        get_scene("yaml")
+        get_scene("no-such-scene")
 
 
 @pytest.mark.parametrize("frame", [0, 10])

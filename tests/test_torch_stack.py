@@ -372,7 +372,7 @@ def test_lights3d_matches_c_golden_color_and_depth():
     depth 0).  Its f64 frame also holds every pixel within 1/255
     (tests/test_goldens_fixtures.py); f32 flips a few shadow-edge bytes."""
     from conftest import load_golden
-    from ndt_tpu_torch.image import linear_to_bytes, normalize_depth
+    from ndt_tpu_torch.image_io import linear_to_bytes, normalize_depth
     from ndt_tpu_torch.render.engine import RenderOptions, render_frame
 
     img, depth, _ = render_frame(
