@@ -110,7 +110,9 @@ nonzero with no "ok" line):
      the stack loop's tail re-run against its twin and timed; then one
      more frame of
      test 4-D and random150 (fused) and of the three new paths under
-     torch.profiler (tools/profile_frame.py): the device's busy share;
+     torch.profiler (tools/profile_frame.py): the device's busy share
+     (test 4-D's profiled frames, fused and unfused, at the optic depth
+     PROFILE_DEPTH: see there);
      then the bench rows of the rest of the registry at 640x480, fused,
      each with its busy share: hypercube f10, hypercube 'walls' f10,
      cluster5d f0 and random "600" f0 (one timed frame), with random600's
@@ -135,6 +137,18 @@ nonzero with no "ok" line):
      s/frame with the saves and without, the Whitted levels and resampled
      share, the adaptive rounds, rays and seconds.  YAML scenes are not
      run (the card's machine has no PyYAML): a line says so.
+  F. float64 frames, the dense trace path (render/intersect.py; no kernel:
+     the launch counters must stay 0), on the card against the C goldens
+     at the JAX package's own f64 bars (F64_GOLDENS): hypercube-points 6-D,
+     random "20" rows 60:80 and the VR camera equal to the byte; PANO, side,
+     anaglyph, over, nelder-mead f12 / f60, lights3d colour and depth,
+     infinite4d, cluster5d, anim6d f0 / f1 / f3 < 1e-3; hypercube and
+     'hcube' bands < 5e-3; Whitted -a 8,3 < 2e-3; the hidef bands < 1e-3;
+     balls 640x480 RMSE < 5e-5 with no pixel off by 1.5/255; the dense
+     path walked in chunks equal to the one-piece walk to the bit, and
+     its bits against the CPU's; balls 4-D 1920x1080 in f64 timed
+     (median of 3): s/frame, Mrays/s, peak device memory, and one frame
+     profiled: the busy share and where the time goes.
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  JAX is never imported.
 
@@ -155,6 +169,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -212,6 +227,11 @@ TEST_BAND_RMSE = 2e-3    # tests/test_render.py's f32 bar, rows 220:260
 QMED_BAR = 1.25e-2
 ADAPTIVE_BAR = 8.3e-3
 EXIT_TIE_FRAC = 1e-3     # live hit lanes whose normal comes from a t tie
+# the optic depth (-l) of test 4-D's two profiled frames (fused, unfused):
+# at the default 128 each frame is ~700k launches, whose chrome trace takes
+# longer to write and read than the frame to render; at 6 a lane's stack
+# holds at most 63 nodes, and the f64 phase fits in the call's 1200 s
+PROFILE_DEPTH = 6
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "trace_closest": ("ndt_tpu_torch/csrc/trace_closest.cu",
@@ -261,16 +281,25 @@ def card_line():
     return out[0].strip()
 
 
-def scene(name, dim, frame=0, frames=1, config=None):
-    """The port's host Scene of a registered scene, aimed."""
+def scene(name, dim, frame=0, frames=1, config=None, cam=None):
+    """The port's host Scene of a registered scene (``frames`` None: its
+    scene_frames), its module state reset before and after, aimed through
+    ``cam`` (a CameraType name) with vFov pi and hFov 2 pi, as the CLI's VR
+    and PANO flags set them (ndt.c:1425-1426)."""
+    from ndt_tpu_torch.camera import CameraType
     from ndt_tpu_torch.scene import Scene
     from ndt_tpu_torch.scenes import get_scene
 
     mod = get_scene(name)
+    cleanup = getattr(mod, "scene_cleanup", lambda: None)
+    cleanup()
     scn = Scene(name, dim)
-    mod.scene_setup(scn, dim, frame, frames, config)
-    if hasattr(mod, "scene_cleanup"):
-        mod.scene_cleanup()
+    mod.scene_setup(scn, dim, frame, mod.scene_frames(dim, config)
+                    if frames is None else frames, config)
+    cleanup()
+    if cam is not None:
+        scn.cam.type = CameraType[cam]
+        scn.cam.v_fov, scn.cam.h_fov = np.pi, 2 * np.pi
     scn.cam.aim()
     return scn
 
@@ -296,8 +325,6 @@ def area_scene(kind=None):
 def device_setup(scn, W, H, device):
     """Kernel tables and the aspect-corrected camera, as render_frame
     builds them."""
-    import dataclasses
-
     import torch
 
     from ndt_tpu_torch.scene import compile_scene, to_device
@@ -1332,15 +1359,21 @@ def time_random600_shade(torch, K, sd, o, v, live, label):
     launches, the escalate mode (the probe keeps the frame on the
     escalating chain) on its 307200 primary rays and on their first
     bounce, each the wrapper's call and the launch alone, with its bound
-    and the share of (lane, light) pairs that need a walk.  Phase 5 times
-    a stack-tail launch of the frame (time_tail) and counts its
-    launches."""
+    and the share of (lane, light) pairs that need a walk, and on the
+    primary rays the twin's time.  Phase 5 times a stack-tail launch of
+    the frame (time_tail) and counts its launches."""
     aux = torch.full((o.shape[0],), -1, dtype=torch.int32, device="cuda")
     for stage in ("primary", "first bounce"):
         got = K.trace_closest(*trace_args(K, sd, o, v, live, aux))
         base, carry, kw = shade_inputs(torch, K, sd, o, v, live, *got)
         time_shade(K, sd, label, stage, "shade_point (escalate)", base,
                    carry, kw, "escalate", live, ())
+        if stage == "primary":
+            _, twin = shade_calls(K, "escalate", kw)
+            print(f"[kernels] {label} shade_point (escalate) primary at "
+                  f"{o.shape[0]} rays: twin "
+                  f"{cuda_ms(lambda: twin(*(base + carry)), 1):.3f} ms "
+                  f"(one call after two, CUDA events)")
         o, v, _, _, _, live = K.shade_carry(*(base + carry), **kw)[:6]
         o, v = o.contiguous(), v.contiguous()
 
@@ -2056,7 +2089,8 @@ def phase_frames(torch, K, card, results, baseline=()):
                        "test 4-D f0", card, reps=1, warm=False,
                        also=("trace_gated", "trace_facets", "shade_point"),
                        sizes=True, baseline=baseline)
-    ok &= busy_share(test4, opts, "test 4-D f0")
+    cut = dataclasses.replace(opts, max_optic_depth=PROFILE_DEPTH)
+    ok &= busy_share(test4, cut, f"test 4-D f0 -l {PROFILE_DEPTH}")
     r150 = quiet(scene, "random", 5, config="150")
     ok &= timed_frames(torch, K, r150, opts,
                        ("trace_facets", "trace_early_exit"), results,
@@ -2076,7 +2110,8 @@ def phase_frames(torch, K, card, results, baseline=()):
         ok &= timed_frames(torch, K, test4, opts, ("trace_shadow",), results,
                            "test 4-D f0 unfused", card, reps=1, warm=False,
                            also=("trace_gated", "trace_facets"))
-        ok &= busy_share(test4, opts, "test 4-D f0 unfused")
+        ok &= busy_share(test4, cut, f"test 4-D f0 unfused -l "
+                         f"{PROFILE_DEPTH}")
         # the shadow walk's capped early exit on its main path
         ok &= timed_frames(torch, K, r150, opts, (), results,
                            "random150 5-D f0 unfused", card, reps=1,
@@ -2253,6 +2288,254 @@ def phase_layouts(torch, card):
 
 
 # --------------------------------------------------------------------------
+# phase F: float64 frames (the dense trace path) against the C goldens
+
+# the JAX package's own f64 golden bars (tests/test_goldens_extended.py,
+# test_goldens_fixtures.py, test_goldens_cluster_yaml.py, test_render.py):
+# label, (scene, D, frame, frames or None for its scene_frames, config),
+# camera, RenderOptions keywords, golden, rows (None: the full frame; a
+# band renders only its rows), RMSE bar (0.0: exact), and the bad-pixel
+# bars (max |channel diff| > threshold on at most n pixels) as (threshold,
+# n) or None
+F64_GOLDENS = (
+    ("hypercube-points 6-D 160x120", ("hypercube-points", 6, 0, None, None),
+     None, dict(width=160, height=120), "hypercube_points_6d_160x120_f0.png",
+     None, 0.0, None),
+    ("random '20' 5-D 320x240 rows 60:80", ("random", 5, 0, 1, "20"), None,
+     dict(width=320, height=240), "random_5d_320x240_f0.png",
+     slice(60, 80), 0.0, None),
+    ("test 4-D VR 160x120", ("test", 4, 0, 300, None), "VR",
+     dict(width=160, height=120), "test_vr_4d_160x120_f0.png", None, 0.0,
+     None),
+    ("test 4-D PANO 160x120", ("test", 4, 0, 300, None), "PANO",
+     dict(width=160, height=120), "test_pano_4d_160x120_f0.png", None, 1e-3,
+     None),
+    ("test 4-D side 160x120", ("test", 4, 0, 300, None), None,
+     dict(width=160, height=120, stereo="side"), "test_side_4d_160x120_f0.png",
+     None, 1e-3, None),
+    ("test 4-D anaglyph 160x120", ("test", 4, 0, 300, None), None,
+     dict(width=160, height=120, stereo="anaglyph"),
+     "test_anaglyph_4d_160x120_f0.png", None, 1e-3, None),
+    ("test 4-D over 160x120", ("test", 4, 0, 300, None), None,
+     dict(width=160, height=120, stereo="over"), "test_over_4d_160x120_f0.png",
+     None, 1e-3, None),
+    ("nelder-mead 3-D 200x150 f12", ("nelder-mead", 3, 12, None, None), None,
+     dict(width=200, height=150), "nelder_mead_3d_200x150_f12.png", None,
+     1e-3, (1 / 255, 0)),
+    ("nelder-mead 3-D 200x150 f60", ("nelder-mead", 3, 60, None, None), None,
+     dict(width=200, height=150), "nelder_mead_3d_200x150_f60.png", None,
+     1e-3, (1 / 255, 0)),
+    ("lights3d 3-D 200x150", ("lights3d", 3, 0, None, None), None,
+     dict(width=200, height=150, record_depth=True),
+     "lights3d_3d_200x150_f0.png", None, 1e-3, (1 / 255, 0)),
+    ("infinite4d 4-D 240x180", ("infinite4d", 4, 0, None, None), None,
+     dict(width=240, height=180), "infinite4d_4d_240x180_f0.png", None,
+     1e-3, (1 / 255, 0)),
+    ("cluster5d 5-D 320x240 rows 80:150", ("cluster5d", 5, 0, None, None),
+     None, dict(width=320, height=240), "cluster5d_5d_320x240_f0.png",
+     slice(80, 150), 1e-3, (1 / 255, 0)),
+    ("anim6d 6-D 160x120 f0 rows 30:90", ("anim6d", 6, 0, 4, None), None,
+     dict(width=160, height=120), "anim6d_6d_160x120_f0.png", slice(30, 90),
+     1e-3, None),
+    ("anim6d 6-D 160x120 f1 rows 30:90", ("anim6d", 6, 1, 4, None), None,
+     dict(width=160, height=120), "anim6d_6d_160x120_f1.png", slice(30, 90),
+     1e-3, None),
+    ("anim6d 6-D 160x120 f3 rows 30:90", ("anim6d", 6, 3, 4, None), None,
+     dict(width=160, height=120), "anim6d_6d_160x120_f3.png", slice(30, 90),
+     1e-3, None),
+    ("hypercube 4-D 320x240 rows 60:90", ("hypercube", 4, 0, None, None),
+     None, dict(width=320, height=240), "hypercube_4d_320x240_f0.png",
+     slice(60, 90), 5e-3, (16 / 255, 3)),
+    ("hypercube 'hcube' 4-D 320x240 rows 60:90",
+     ("hypercube", 4, 0, None, "hcube"), None, dict(width=320, height=240),
+     "hypercube_hcube_4d_320x240_f0.png", slice(60, 90), 5e-3, (16 / 255, 3)),
+    ("test 4-D -w -a 8,3 160x120", ("test", 4, 0, 300, None), None,
+     dict(width=160, height=120, whitted=True, aa_diff=8, aa_depth=3),
+     "test_whitted_4d_160x120_f0.png", None, 2e-3, None),
+    ("balls 4-D 640x480", ("balls", 4, 0, 1500, None), None,
+     dict(width=640, height=480), "balls_4d_640x480_f0.png", None, 5e-5,
+     (1.5 / 255, 0)),
+)
+
+
+def f64_band(torch, scn, opts, rows, eye="center", base=0):
+    """Rows ``rows`` of an f64 frame on the card (render_tile over the
+    rows' pixels; ``base``: the eye panel's first row, hidef), as linear
+    numpy, and the rays."""
+    from ndt_tpu_torch.render.engine import frame_camera, render_tile
+    from ndt_tpu_torch.scene import compile_scene, to_device
+
+    cam = frame_camera(scn, opts, "cuda")
+    sd = to_device(quiet(compile_scene, scn, np.float64), "cuda")
+    W = opts.width
+    xs = np.arange(W, dtype=np.float64) / W - 0.5
+    jp = np.arange(rows.start, rows.stop, dtype=np.float64) - base
+    panel_h = 1080.0 if opts.stereo == "hidef" else opts.height
+    xg, yg = np.meshgrid(xs, -(jp / panel_h - 0.5))
+    c, _, n = render_tile(sd, cam, torch.as_tensor(xg.ravel(), device="cuda"),
+                          torch.as_tensor(yg.ravel(), device="cuda"), opts,
+                          eye=eye)
+    return c.cpu().numpy().reshape(-1, W, 3), int(n)
+
+
+def check_f64(label, mine, ref, bar, bad, t0, rays, card):
+    """One golden row's verdict line: RMSE against its bar (0.0: equal
+    bytes), and the bad-pixel bar."""
+    err = rmse(mine, ref)
+    ok = bool(np.isfinite(mine).all()) and (err == 0.0 if bar == 0.0
+                                            else err < bar)
+    nbad = ""
+    if bad is not None:
+        n = int((np.abs(mine - ref).max(-1) > bad[0]).sum())
+        ok &= n <= bad[1]
+        nbad = (f", {n} pixels off by > {bad[0] * 255:.1f}/255 (bar "
+                f"{bad[1]})")
+    print(f"[f64] {label}: RMSE {err:.3e} (bar {'== 0' if bar == 0.0 else f'< {bar:g}'}"
+          f"){nbad} {'ok' if ok else 'FAIL'}; {rays} rays, "
+          f"{time.perf_counter() - t0:.2f} s on {card}")
+    return ok
+
+
+def f64_dense_bits(torch, card):
+    """The dense path's invariants on the card: balls 640x480's f64
+    primary rays traced (trace, occlusion_trace, shadow_trace at a
+    seeded limit) in one piece and in chunks of 4099 rays give the same
+    bits; and every 64th of those rays traced on the CPU too, whose count
+    of lanes that differ from the card's is printed (the dense path uses
+    only IEEE-rounded operations, so it should be 0)."""
+    from ndt_tpu_torch.render import trace as T
+    from ndt_tpu_torch.render.engine import (RenderOptions, _pixel_grid,
+                                             frame_camera, gen_rays)
+    from ndt_tpu_torch.scene import compile_scene, to_device
+
+    scn = balls_scene()
+    opts = RenderOptions(width=640, height=480, dtype="float64")
+    sd64 = compile_scene(scn, np.float64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sd = to_device(sd64, dev)
+        cam = frame_camera(scn, opts, dev)
+        xx, yy = _pixel_grid(640, 480, np.float64)
+        step = 1 if dev == "cuda" else 64
+        o, v = gen_rays(cam, torch.as_tensor(xx.ravel()[::step], device=dev),
+                        torch.as_tensor(yy.ravel()[::step], device=dev))
+        lim = torch.as_tensor(np.random.default_rng(0).uniform(
+            1.0, 40.0, 640 * 480)[::step], device=dev)
+        runs = []
+        for elems in (T._DENSE_ELEMS, 4099 * sd.dense.mat.shape[0]):
+            keep, T._DENSE_ELEMS = T._DENSE_ELEMS, elems
+            try:
+                runs.append([T.trace(sd, o, v), T.occlusion_trace(sd, o, v),
+                             T.shadow_trace(sd, o, v, lim)])
+            finally:
+                T._DENSE_ELEMS = keep
+            if dev == "cpu":
+                break
+        out[dev] = runs
+    same = all(torch.equal(getattr(a, f), getattr(b, f))
+               for a, b in zip(*out["cuda"]) for f in a._fields
+               if getattr(a, f) is not None)
+    diff = {name: int(((a.t.cpu()[::64] != b.t)
+                       | (a.mat.cpu()[::64] != b.mat)).sum())
+            for name, a, b in zip(("trace", "occlusion", "shadow"),
+                                  out["cuda"][0], out["cpu"][0])}
+    print(f"[f64] dense path on {card}: chunks of 4099 rays "
+          f"{'equal' if same else 'DIFFER from'} the one-piece walk to the "
+          f"bit (trace, occlusion_trace, shadow_trace of 307200 balls "
+          f"640x480 rays); of every 64th lane, those whose t or material "
+          f"differ from the CPU's {diff} {'ok' if same else 'FAIL'}")
+    return same
+
+
+def phase_f64(torch, K, card):
+    """Phase F: every f64 golden of the JAX package at its C size on the
+    card, to the JAX test's bar (F64_GOLDENS, the hidef bands < 1e-3 each
+    eye), with no kernel launched (the launch counters stay 0); the dense
+    path's chunk invariance and its bits against the CPU's; then balls 4-D
+    1920x1080 in f64 timed (median of 3 after a warm-up, host clock
+    around torch.cuda.synchronize()): s/frame, Mrays/s, the peak device
+    memory, and one more frame under torch.profiler
+    (tools/profile_frame.py): the device's busy share and where the time
+    goes."""
+    from ndt_tpu_torch.image_io import linear_to_bytes, normalize_depth
+    from ndt_tpu_torch.render.engine import RenderOptions, render_frame
+
+    ok = True
+    K.reset_launch_counts()
+    for label, (key, dim, frame, frames, config), cam, kw, gold, rows, bar, \
+            bad in F64_GOLDENS:
+        scn = scene(key, dim, frame, frames, config, cam)
+        opts = RenderOptions(dtype="float64", **kw)
+        t0 = time.perf_counter()
+        if rows is None:
+            img, depth, rays = quiet(render_frame, scn, opts)
+            ref = golden(gold)
+        else:
+            img, rays = f64_band(torch, scn, opts, rows)
+            depth, ref = None, golden(gold)[rows]
+        torch.cuda.synchronize()
+        if opts.stereo == "anaglyph" and np.any(img[..., 1] != 0):
+            print("[f64] anaglyph: the green channel is not zero: FAIL")
+            ok = False
+        ok &= check_f64(label, linear_to_bytes(img) / 255.0, ref, bar, bad,
+                        t0, rays, card)
+        if depth is not None:
+            dmine = linear_to_bytes(np.repeat(normalize_depth(depth)[..., None],
+                                              3, -1)) / 255.0
+            ok &= check_f64(label + " depth", dmine, golden(
+                gold.replace(".png", "_depth.png")), 1e-3, (1 / 255, 2), t0,
+                rays, card)
+    scn = scene("test", 4, 0, 300)
+    opts = RenderOptions(width=1920, height=2205, stereo="hidef",
+                         dtype="float64")
+    ref = golden("test_hidef_4d_1920x2205_f0.png")
+    for j0, j1, base, eye in HIDEF_BANDS:
+        t0 = time.perf_counter()
+        img, rays = f64_band(torch, scn, opts, slice(j0, j1), eye, base)
+        ok &= check_f64(f"test 4-D hidef 1920x2205 rows {j0}:{j1} ({eye})",
+                        linear_to_bytes(img) / 255.0, ref[j0:j1], 1e-3,
+                        None, t0, rays, card)
+    launched = {k: n for k, n in K.launch_counts.items() if n}
+    print(f"[f64] kernel launches in the f64 frames: {launched or 'none'} "
+          f"{'ok' if not launched else 'FAIL'}")
+    ok &= not launched
+    ok &= f64_dense_bits(torch, card)
+
+    scn = balls_scene()
+    opts = RenderOptions(width=1920, height=1080, dtype="float64")
+    quiet(render_frame, scn, opts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        img, _, rays = render_frame(scn, opts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    s = float(np.median(times))
+    fok = img.shape == (1080, 1920, 3) and bool(np.isfinite(img).all())
+    print(f"[f64] balls 4-D 1920x1080 float64 on {card}: {s:.4f} s/frame "
+          f"(median of 3: {', '.join(f'{x:.4f}' for x in times)}), {rays} "
+          f"rays/frame, {rays / s / 1e6:.2f} Mrays/s, peak device memory "
+          f"{peak:.2f} GiB {'ok' if fok else 'FAIL'}")
+    ok &= fok
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import profile_frame
+
+    res = quiet(profile_frame.profile_frame, scn, opts)
+    kinds = sorted(res["device_by_kind"].items(), key=lambda kv: -kv[1]["ms"])
+    spans = sorted(res["host_spans"].items(), key=lambda kv: -kv[1]["ms"])
+    print(f"[f64] balls 4-D 1920x1080 float64 under the profiler: frame span "
+          f"{res['span_ms']:.3f} ms, device busy {res['busy_ms']:.3f} ms = "
+          f"{100 * res['busy_share']:.1f}% busy; {res['kernel_launches']} "
+          f"kernel launches; top device time "
+          f"{[(k, round(d['ms'], 3), d['n']) for k, d in kinds[:8]]}; host "
+          f"spans {[(k, round(d['ms'], 1), d['calls']) for k, d in spans[:10]]}")
+    return ok and res["busy_share"] > 0
+
+
+# --------------------------------------------------------------------------
 # phase B: the command line at full width
 
 # label, argv, the kernels its path launches, what its first frame is held
@@ -2423,7 +2706,8 @@ def main(argv=None):
               ("frames", lambda: phase_frames(torch, K, card, results,
                                               baseline)),
               ("layouts", lambda: phase_layouts(torch, card)),
-              ("cli", lambda: phase_cli(torch, K, card)))
+              ("cli", lambda: phase_cli(torch, K, card)),
+              ("f64", lambda: phase_f64(torch, K, card)))
     print("[yaml] YAML scenes are not run here: this machine has no PyYAML "
           "(the CPU tests hold the reader and writer)")
     for label, phase in phases:

@@ -30,7 +30,9 @@ def fma(a, b, c):
     float taken as the constant XLA would make of it).  For f32 the product
     of two f32 is exact in f64, so only the sum rounds before the cast (a
     double rounding differs from the FMA's single one with probability
-    ~2^-29); f64 operands round twice.
+    ~2^-29).  With an f64 tensor among the operands it is the plain
+    a * b + c, two torch ops, each rounded on its own as the C's doubles
+    are (no fused kernel, so the card and the CPU agree).
 
     The port's f32 arithmetic rounds as the JAX package's does on the CPU,
     where its f32 frames are checked: XLA lets LLVM contract an add or
@@ -39,13 +41,14 @@ def fma(a, b, c):
     engine write those sites with this function; the CUDA kernels use
     __fmaf_rn at the same sites (csrc/families.cuh)."""
     ts = [x for x in (a, b, c) if isinstance(x, torch.Tensor)]
-    dt = (torch.float64 if any(x.dtype == torch.float64 for x in ts)
-          else torch.float32)
+    if any(x.dtype == torch.float64 for x in ts):
+        return a * b + c
+    dt = torch.float32
 
     def up(x):
         if isinstance(x, torch.Tensor):
             return x.double()
-        return float(np.float32(x)) if dt == torch.float32 else float(x)
+        return float(np.float32(x))
 
     a, b, c = up(a), up(b), up(c)
     if len(ts) == 3:
@@ -55,24 +58,35 @@ def fma(a, b, c):
 
 def sqrt(x):
     """IEEE (correctly rounded) square root of a torch tensor, as numpy,
-    XLA and CUDA's sqrtf give it.  torch's vectorised f32 sqrt on the CPU
-    is not correctly rounded (it differs in ~0.7% of values); the f64 root
-    rounded to f32 is (53 >= 2 * 24 + 2 bits)."""
-    return torch.sqrt(x.double()).to(x.dtype)
+    XLA, the C's sqrt() and CUDA's sqrt / sqrtf give it.  torch's
+    vectorised sqrt on the CPU is not correctly rounded in f32 (it differs
+    in ~0.7% of values) nor in f64 (~0.8%, by one ulp): an f32 root is the
+    f64 root rounded to f32 (53 >= 2 * 24 + 2 bits), an f64 root on the
+    CPU numpy's."""
+    if x.dtype != torch.float64:
+        return torch.sqrt(x.double()).to(x.dtype)
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    with np.errstate(invalid="ignore"):
+        return torch.as_tensor(np.sqrt(x.numpy()))
 
 
 def dot(a, b):
     """Inner product over the trailing dimension axis (vectNd_dot).  On
     torch f32 tensors it rounds as XLA's CPU reduction does, which the JAX
     package's f32 reference runs: the first product alone, then each
-    later product fused into the running sum."""
-    if not _is_torch(a, b) or torch.promote_types(a.dtype, b.dtype) \
-            != torch.float32:
+    later product fused into the running sum.  On torch f64 tensors it is
+    the C's loop: each product and each sum rounded on its own, in index
+    order (the JAX package's f64 sums through XLA can differ in the last
+    bit)."""
+    if not _is_torch(a, b):
         return (a * b).sum(axis=-1)
     a, b = torch.broadcast_tensors(a, b)
     acc = a[..., 0] * b[..., 0]
+    f32 = acc.dtype == torch.float32
     for d in range(1, a.shape[-1]):
-        acc = fma(a[..., d], b[..., d], acc)
+        acc = (fma(a[..., d], b[..., d], acc) if f32
+               else acc + a[..., d] * b[..., d])
     return acc
 
 

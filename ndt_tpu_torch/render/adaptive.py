@@ -49,10 +49,12 @@ def _render_points(scn, cam, gx, gy, amap, opts: RenderOptions, eye,
                    aperture, gen):
     """Colours [P, 3] (numpy) and rays traced of samples at fractional
     corner-grid coordinates (gx, gy) under the affine screen map
-    x = ax * gx + bx, y = ay * gy + by, amap = (ax, bx, ay, by)."""
+    x = ax * gx + bx, y = ay * gy + by, amap = (ax, bx, ay, by), the
+    screen coordinates in opts.dtype."""
     ax, bx, ay, by = amap
-    c, _, n = render_points(scn, cam, (ax * gx + bx).astype(np.float32),
-                            (ay * gy + by).astype(np.float32), opts, eye,
+    dt = np.dtype(opts.dtype)
+    c, _, n = render_points(scn, cam, (ax * gx + bx).astype(dt),
+                            (ay * gy + by).astype(dt), opts, eye,
                             None, aperture, gen)
     return c, n
 
@@ -153,12 +155,14 @@ def render_adaptive_samples(scn, cam, x, y, opts: RenderOptions,
     jittered, aperture-sampled samples of the pixels at screen coords
     ``x, y`` ([P] numpy) until the running mean moves by less than 1/256
     (at least opts.samples, at most MAX_SAMPLES).  Returns (colour [P, 3],
-    depth [P] of each pixel's first sample, rays traced)."""
+    depth [P] of each pixel's first sample, both in opts.dtype, rays
+    traced)."""
     if gen is None:
         gen = frame_generator(scn.device, opts)
     P = len(x)
-    x = np.asarray(x, np.float32)
-    y = np.asarray(y, np.float32)
+    dt = np.dtype(opts.dtype)
+    x = np.asarray(x, dt)
+    y = np.asarray(y, dt)
     t_clr = np.zeros((P, 3), np.float64)
     depth0 = np.zeros(P, np.float64)
     t_n = np.zeros(P, np.int64)
@@ -196,5 +200,5 @@ def render_adaptive_samples(scn, cam, x, y, opts: RenderOptions,
         active_idx = active_idx[keep]
         if i >= MAX_SAMPLES:
             break
-    color = (t_clr / np.maximum(t_n, 1)[:, None]).astype(np.float32)
-    return color, depth0.astype(np.float32), total_rays
+    color = (t_clr / np.maximum(t_n, 1)[:, None]).astype(dt)
+    return color, depth0.astype(dt), total_rays

@@ -37,7 +37,8 @@ def render_animation(scene_mod, dimensions: int, first: int, last: int,
                      progress: Optional[Callable[[FrameResult], None]] = None,
                      device="cuda"):
     """Render frames [first, last] of an animation on ``device`` into
-    ``out_dir`` (depth maps, with opts.record_depth, into its ``depth/``).
+    ``out_dir`` (depth maps, with opts.record_depth, into its ``depth/``),
+    each in opts.dtype (float64: the C's doubles, the dense trace path).
     Returns (FrameResults, seconds, rays traced).  A ``SCENE`` in
     ``out_dir`` stands for the scene's name, known once scene_setup ran.
 

@@ -1,10 +1,11 @@
 """The render engine: primary rays, the reflection-chain bounce loop, the
 refraction stack, frame assembly.
 
-Counterpart of ``ndt_tpu/render/engine.py`` for mono, one-sample, f32
-frames: the path of the README's library example.  A whole batch of rays
-advances in lockstep, with a Python loop in place of the JAX package's
-host-chunked while loops:
+Counterpart of ``ndt_tpu/render/engine.py`` for frames on one device, in
+float32 (the kernels' path) or float64 (``RenderOptions.dtype``: the JAX
+package's correctness mode, the C's doubles, traced by the dense path of
+``render/trace.py``).  A whole batch of rays advances in lockstep, with a
+Python loop in place of the JAX package's host-chunked while loops:
 
 * each bounce traces and shades in one of two ways, as the JAX package's
   NDT_FUSED_SHADOW switch (read at import, ``_FUSED_SHADOW``) and the
@@ -14,15 +15,17 @@ host-chunked while loops:
   (``trace.trace``, then ``shade.apply_lights``: one stacked
   ``shadow_trace`` for the point, spot and area lights, one stacked
   ``occlusion_trace`` for the directional ones, the shading in torch ops).
-  A scene whose lights are all ambient takes the unfused branch;
+  A scene whose lights are all ambient, and every float64 frame, takes
+  the unfused branch;
 * area lights draw their points from one torch.Generator per frame,
   seeded with ``RenderOptions.seed``; at one seed both branches draw the
   same points;
 * scenes without a transparent material run the reflection chain;
 * scenes with one run the taint escalation of ``render_rays_chunked``
-  (engine.py:475-516): a probe on a strided subsample estimates the share
-  of lanes that reach glass; above _ESC_TAINT_MAX the batch runs all in
-  stack mode, else the chain runs with escalation (a lane that hits a
+  (engine.py:475-516): in float32 a probe on a strided subsample
+  estimates the share of lanes that reach glass, and above _ESC_TAINT_MAX
+  the batch runs all in stack mode; else (and always in float64, as the
+  JAX package) the chain runs with escalation (a lane that hits a
   transparent surface freezes, tainted) and exactly the tainted lanes
   re-run from their primary rays in stack mode.  The stack pops one node
   per lane and iteration (the JAX default, _STACK_POP = 1), traces and
@@ -37,7 +40,7 @@ anaglyph and hidef layouts, each optionally through Whitted corner-grid
 anti-aliasing (``render/adaptive.py``); ``opts.samples > 1`` runs the
 per-pixel convergence loop (``opts.adaptive``) or a plain average.
 
-Not ported yet (ROADMAP Queue 1): the f64 path, multi-device rendering.
+Not ported yet (ROADMAP Queue 1): multi-device rendering.
 """
 
 from __future__ import annotations
@@ -79,7 +82,8 @@ _FUSED_SHADOW = os.environ.get("NDT_FUSED_SHADOW", "1") != "0"
 @dataclasses.dataclass(frozen=True)
 class RenderOptions:
     """The CLI flags that shape a render (engine.RenderOptions), for
-    float32 frames on one device."""
+    frames on one device; ``dtype`` "float32" (the kernels) or "float64"
+    (the dense path: the C's doubles)."""
 
     width: int = 1920
     height: int = 1080
@@ -96,6 +100,15 @@ class RenderOptions:
                                      # jittered samples > 1)
     stack_size: int = 16             # pending refraction branches per ray
     seed: int = 0                    # the frame generator's seed
+    dtype: str = "float32"           # the frame's float type
+
+
+def torch_dtype(opts: RenderOptions):
+    """opts.dtype as a torch dtype: float32 or float64."""
+    if opts.dtype not in ("float32", "float64"):
+        raise ValueError(f"RenderOptions.dtype {opts.dtype!r}: float32 or "
+                         "float64")
+    return getattr(torch, opts.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -368,20 +381,26 @@ def frame_generator(device, opts: RenderOptions):
 def render_rays_chunked(scn: DeviceScene, o, v, opts: RenderOptions,
                         gen=None):
     """Trace a batch of primary rays to completion (the host-driven loop
-    of engine.render_rays_chunked).  ``gen``: the frame's generator
-    (frame_generator; None: a fresh one).  Returns (color [R,3], depth
-    [R], rays traced, a 0-d tensor; the probe's rays included)."""
+    of engine.render_rays_chunked) in the rays' dtype: float32 on the
+    fused branch where the scene's lights allow it, float64 always on the
+    unfused one.  ``gen``: the frame's generator (frame_generator; None: a
+    fresh one).  Returns (color [R,3], depth [R], rays traced, a 0-d
+    tensor; the probe's rays included)."""
     if gen is None:
         gen = frame_generator(o.device, opts)
-    light_info = fused_light_info(scn) if _FUSED_SHADOW else None
+    f32 = o.dtype == torch.float32
+    light_info = fused_light_info(scn) if _FUSED_SHADOW and f32 else None
     if not scn.has_transparent:
         carry = _run_chain(scn, light_info, o, v, opts, gen)
         return carry[6], carry[7], carry[8]
-    taint_frac, probe_rays = _probe_taint_frac(scn, light_info, o, v, opts,
-                                               gen)
-    if taint_frac > _ESC_TAINT_MAX:
-        color, depth, nrays = _run_stack(scn, light_info, o, v, opts, gen)
-        return color, depth, nrays + probe_rays
+    probe_rays = 0
+    if f32:                 # float64 escalates always (engine.py:484)
+        taint_frac, probe_rays = _probe_taint_frac(scn, light_info, o, v,
+                                                   opts, gen)
+        if taint_frac > _ESC_TAINT_MAX:
+            color, depth, nrays = _run_stack(scn, light_info, o, v, opts,
+                                             gen)
+            return color, depth, nrays + probe_rays
     carry = _run_chain(scn, light_info, o, v, opts, gen, escalate=True)
     color, depth, nrays, taint = carry[6], carry[7], carry[8], carry[9]
     ti = torch.nonzero(taint)[:, 0]
@@ -417,16 +436,18 @@ def render_tile(scn: DeviceScene, cam: CameraData, x, y,
 def render_points(scn: DeviceScene, cam: CameraData, x, y,
                   opts: RenderOptions, eye="center", jitter=None,
                   aperture=False, gen=None):
-    """One sample of each screen point ``x, y`` ([P] float32 numpy) from
-    ``eye``, _TILE rays per bounce-loop batch: (color [P, 3], depth [P])
-    as numpy and the rays traced.  ``jitter`` and ``aperture`` as in
-    gen_rays.  The refinement levels and the adaptive rounds render
-    through it."""
+    """One sample of each screen point ``x, y`` ([P] numpy, cast to the
+    opts.dtype) from ``eye``, _TILE rays per bounce-loop batch: (color
+    [P, 3], depth [P]) as numpy and the rays traced.  ``jitter`` and
+    ``aperture`` as in gen_rays.  The refinement levels and the adaptive
+    rounds render through it."""
     colors, depths, nrays = [], [], 0
+    dt = torch_dtype(opts)
     for t0 in range(0, len(x), _TILE):
-        o, v = gen_rays(cam, torch.as_tensor(x[t0:t0 + _TILE],
+        o, v = gen_rays(cam, torch.as_tensor(x[t0:t0 + _TILE], dtype=dt,
                                              device=scn.device),
-                        torch.as_tensor(y[t0:t0 + _TILE], device=scn.device),
+                        torch.as_tensor(y[t0:t0 + _TILE], dtype=dt,
+                                        device=scn.device),
                         eye, jitter, aperture, gen)
         c, d, n = render_rays_chunked(scn, o, v, opts, gen)
         colors.append(c.cpu().numpy())
@@ -495,15 +516,17 @@ def _render_grid(scn: DeviceScene, cam: CameraData, xx, yy,
 
 
 def frame_camera(scene_host, opts: RenderOptions, device):
-    """The aimed camera's CameraData on ``device`` with the screen's X
-    direction aspect-corrected, as render_image does every frame
-    (ndt.c:926-930); hidef takes the 1080-row aspect of one eye."""
+    """The aimed camera's CameraData on ``device`` in opts.dtype with the
+    screen's X direction aspect-corrected, as render_image does every
+    frame (ndt.c:926-930); hidef takes the 1080-row aspect of one eye."""
     if not scene_host.cam.prepared:
         scene_host.cam.aim()
-    cam = scene_host.cam.data(dtype=torch.float32, device=device)
+    dt = torch_dtype(opts)
+    cam = scene_host.cam.data(dtype=dt, device=device)
     aspect = opts.width / (1080.0 if opts.stereo == "hidef" else opts.height)
-    return dataclasses.replace(
-        cam, dir_x=cam.dir_x * float(np.float32(aspect)))
+    if dt == torch.float32:
+        aspect = float(np.float32(aspect))
+    return dataclasses.replace(cam, dir_x=cam.dir_x * aspect)
 
 
 # the eye panels of the stereo layouts (ndt.c:590-630): per eye, the rows
@@ -532,10 +555,9 @@ def _panels(W, H, stereo):
     raise ValueError(f"unknown stereo mode {stereo!r}")
 
 
-def panel_grid(W, H, stereo, eye, rows, cols):
+def panel_grid(W, H, stereo, eye, rows, cols, dt=np.float32):
     """The screen coordinates [h, w] of an eye panel's pixel centers
-    (ndt.c:590-633), computed in float32 as the JAX package's layouts."""
-    dt = np.float32
+    (ndt.c:590-633), computed in ``dt`` as the JAX package's layouts."""
     if stereo == "side":
         xs = (np.arange(cols.stop - cols.start, dtype=dt) / 0.5) / W - 0.5
         ys = -(np.arange(H, dtype=dt) / H - 0.5)
@@ -555,9 +577,10 @@ def panel_grid(W, H, stereo, eye, rows, cols):
 
 def render_frame(scene_host, opts: RenderOptions, device="cuda"):
     """Render a full frame of a host Scene on ``device``: the card unless
-    the caller asks for the CPU, where the kernels' plain twins run.
-    Returns (img [H, W, 3] linear float32, depth [H, W] or None, rays
-    traced).  Every layout renders each eye's panel on its own grid, or
+    the caller asks for the CPU, where the kernels' plain twins run, in
+    opts.dtype (the scene compiled, the camera packed, the pixel grids and
+    the rays all in it).  Returns (img [H, W, 3] linear in opts.dtype,
+    depth [H, W] or None, rays traced).  Every layout renders each eye's panel on its own grid, or
     with opts.whitted through the corner grid and the refinement of
     adaptive.whitted_refine under the panel's affine map (the C's -w
     resamples the frame whatever the stereo mode, ndt.c:1039-1103)."""
@@ -565,11 +588,11 @@ def render_frame(scene_host, opts: RenderOptions, device="cuda"):
 
     device = render_device(device)
     cam = frame_camera(scene_host, opts, device)
-    scn = to_device(compile_scene(scene_host), device)
+    dt = np.dtype(opts.dtype).type
+    scn = to_device(compile_scene(scene_host, dt), device)
     gen = frame_generator(device, opts)
     adaptive.history.clear()
     W, H = opts.width, opts.height
-    dt = np.float32
     rays = 0
     eyes = {}
     for eye, rows, cols, amap in _panels(W, H, opts.stereo):
@@ -589,7 +612,7 @@ def render_frame(scene_host, opts: RenderOptions, device="cuda"):
             d = d.reshape(h + 1, w + 1)[:h, :w]
             n += extra
         else:
-            xg, yg = panel_grid(W, H, opts.stereo, eye, rows, cols)
+            xg, yg = panel_grid(W, H, opts.stereo, eye, rows, cols, dt)
             c, d, n = _render_grid(scn, cam, xg, yg, opts, eye, gen)
             c, d = c.reshape(h, w, 3), d.reshape(h, w)
         eyes[eye] = (rows, cols, c, d)

@@ -20,7 +20,10 @@ All shadow rays of all point, spot and area lights go into ONE
 shadow_trace launch, and those of all directional lights into ONE
 occlusion_trace launch, per call, as the JAX package stacks them.  The
 elementwise shading around them is torch ops: the JAX package computes it
-in XLA, outside any kernel.
+in XLA, outside any kernel.  It runs in the rays' dtype: float32 rounds as
+the JAX package's f32 (products contracted where XLA contracts them, the
+specular power by binary exponentiation), float64 as the C's doubles
+(each operation rounded on its own, the specular power by pow()).
 """
 
 from __future__ import annotations
@@ -38,21 +41,28 @@ from ndt_tpu_torch.scene.compile import DeviceScene, LightData
 AMBIENT, POINT, DIRECTIONAL, SPOT, DISK, RECT = range(6)
 
 
+def _const(x, dtype):
+    """A Python float of ``x`` as the constant a ``dtype`` array holds."""
+    return float(np.float32(x)) if dtype == torch.float32 else float(x)
+
+
 def area_points(light: LightData, ux, uy):
     """Points of the light's surface from two uniform [0, 1) arrays [R]
-    (ndt.c:130-141): a disk by the polar map (x, y) = sqrt(ux) (cos, sin)
-    (2 pi uy), equal in distribution to the C's rejection sampling; a
-    rectangle by (x, y) = 2 (ux, uy) - 1.  Returns pos + radius (x u1 +
-    y v1), [R, D], as the JAX package's _sample_area_light computes it
-    from the same uniforms (jitted, where XLA contracts the single-use
-    products into the adds that consume them)."""
-    dev = ux.device
-    pos, u1, v1 = (torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    (ndt.c:130-141) in their dtype: a disk by the polar map (x, y) =
+    sqrt(ux) (cos, sin) (2 pi uy), equal in distribution to the C's
+    rejection sampling; a rectangle by (x, y) = 2 (ux, uy) - 1.  Returns
+    pos + radius (x u1 + y v1), [R, D], as the JAX package's
+    _sample_area_light computes it from the same uniforms (in f32 jitted,
+    where XLA contracts the single-use products into the adds that
+    consume them)."""
+    dev, dt = ux.device, ux.dtype
+    pos, u1, v1 = (torch.as_tensor(np.asarray(x, np.float64), dtype=dt,
+                                   device=dev)
                    for x in (light.pos, light.u1, light.v1))
-    radius = float(np.float32(light.radius))
+    radius = _const(light.radius, dt)
     if light.kind == DISK:
         r = sqrt(ux)
-        th = uy * float(np.float32(2.0 * np.pi))
+        th = uy * _const(2.0 * np.pi, dt)
         x, y = r * torch.cos(th), r * torch.sin(th)
     else:
         x = fma(ux, 2.0, -1.0)
@@ -61,14 +71,16 @@ def area_points(light: LightData, ux, uy):
                fma(u1[None, :], (x * radius)[:, None], pos[None, :]))
 
 
-def _sample_area_light(light: LightData, gen, R, device):
+def _sample_area_light(light: LightData, gen, R, device,
+                       dtype=torch.float32):
     """One uniform point of the light's surface for each of R shading
     events, drawn from ``gen`` (a torch.Generator on ``device``; None: a
-    fresh one seeded 0) as two [R] uniform arrays, x then y."""
+    fresh one seeded 0) as two [R] uniform arrays of ``dtype``, x then
+    y."""
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(0)
-    ux = torch.rand(R, generator=gen, device=device)
-    uy = torch.rand(R, generator=gen, device=device)
+    ux = torch.rand(R, generator=gen, device=device, dtype=dtype)
+    uy = torch.rand(R, generator=gen, device=device, dtype=dtype)
     return area_points(light, ux, uy)
 
 
@@ -83,13 +95,14 @@ def apply_lights(scn: DeviceScene, src, look, tr, active, gen=None,
     order; ``area`` {index in the scene's lights: [R, D]} gives those
     points instead.  ``specular=False`` is the -p flag (ndt.c:41, 280)."""
     sd = scn.host
-    dev = src.device
+    dev, dt = src.device, src.dtype
     hit_pt, normal, mat_id = tr.point, tr.normal, tr.mat
     color, reflect_c, transparent = tr.color, tr.reflect, tr.transparent
     R = src.shape[0]
 
     def vec(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        return torch.as_tensor(np.asarray(x, np.float64), dtype=dt,
+                               device=dev)
 
     out = color * vec(sd.ambient)[None, :]          # ndt.c:89-91
 
@@ -103,7 +116,7 @@ def apply_lights(scn: DeviceScene, src, look, tr, active, gen=None,
         kind = light.kind
         if kind in (DISK, RECT):
             lgt_pos = (area[li] if area is not None
-                       else _sample_area_light(light, gen, R, dev))
+                       else _sample_area_light(light, gen, R, dev, dt))
             kind = POINT                                    # ndt.c:143-144
         else:
             lgt_pos = vec(light.pos)[None, :].expand(src.shape)
@@ -123,7 +136,7 @@ def apply_lights(scn: DeviceScene, src, look, tr, active, gen=None,
             if kind == SPOT:
                 cone = mathnd.angle(vec(light.dir)[None, :].expand(
                     src.shape), light_vec)
-                mask = mask & ((cone * float(np.float32(180.0 / np.pi)))
+                mask = mask & ((cone * _const(180.0 / np.pi, dt))
                                <= float(light.angle_deg))
             pointish.append((li, light, lgt_pos, light_vec, ldist2, mask))
         else:
@@ -172,7 +185,8 @@ def apply_lights(scn: DeviceScene, src, look, tr, active, gen=None,
                                                       0.5))
             rv = torch.clamp_min(mathnd.dot(light_ref,
                                             mathnd.unitize(-look)), 0.0)
-            rvn = _ipow(rv, SPECULAR_POWER)[:, None]
+            rvn = (_ipow(rv, SPECULAR_POWER) if dt == torch.float32
+                   else torch.pow(rv, SPECULAR_POWER))[:, None]
             # the C divides by max_light unguarded (ndt.c:302-305); a zero
             # light contributes 0 instead of NaN
             max_light = lcol.max()
@@ -186,5 +200,5 @@ def apply_lights(scn: DeviceScene, src, look, tr, active, gen=None,
     for li, light, _, _ in directional:
         out = add_light_terms(out, li, light,
                               vec(light.dir)[None, :].expand(src.shape),
-                              torch.ones(R, device=dev))
+                              torch.ones(R, dtype=dt, device=dev))
     return out

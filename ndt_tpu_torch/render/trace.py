@@ -16,8 +16,16 @@ Counterpart of ``ndt_tpu/render/trace.py`` on its f32 kernel path:
   shading event (``_area_positions``, drawn from a torch.Generator as
   ``shade.apply_lights`` draws them, so both paths see the same points).
 
-The f64 jnp trace path of the JAX package (``render/intersect.py``) is not
-ported (ROADMAP Queue 1 item 4): the entry points raise on float64 rays.
+Each trace entry point dispatches on the rays' dtype: float32 rays take
+the kernels above (on the card the CUDA kernels, on the CPU their plain
+twins); float64 rays, the JAX package's correctness mode, take the dense
+path on either device: every family's ``[R, N]`` distances
+(``render/intersect.py``), one argmin, the winner's hit-local re-solve and
+a second argmin past the rejected silhouette candidates
+(``_closest_with_refine``), the winner's normal and material.  Its rays
+are walked in chunks of at most _DENSE_ELEMS ray-leaf pairs, the live
+lanes only; rows are independent, so the chunks do not change a bit.  No
+float32 ray reaches the dense path and no float64 ray a kernel.
 """
 
 from __future__ import annotations
@@ -30,11 +38,12 @@ import torch
 from ndt_tpu_torch import mathnd
 from ndt_tpu_torch.constants import BIG, EPSILON
 from ndt_tpu_torch.mathnd import fma, sqrt
+from ndt_tpu_torch.render import intersect
 from ndt_tpu_torch.render.kernels import (RT, cull_lists, light_fields,
                                           shade_carry, shade_local,
                                           trace_any, trace_closest,
                                           trace_shadow, use_early_exit)
-from ndt_tpu_torch.scene.compile import DeviceScene
+from ndt_tpu_torch.scene.compile import NOT_INFINITE, DeviceScene
 from ndt_tpu_torch.scene.model import LightType
 
 
@@ -272,26 +281,203 @@ def trace_fused(scn: DeviceScene, light_info, o, v, live, specular=True,
 
 
 # --------------------------------------------------------------------------
-# the trace API: one cull and one kernel launch each
+# the dense float64 path (trace.py's jnp branches)
+
+# ray-leaf pairs per chunk of the dense path: one [R_c, N] float64 array is
+# at most 256 MiB, and a family's pass keeps a few dozen of them alive
+_DENSE_ELEMS = 1 << 25
+# rays up to which _closest_with_refine syncs to skip a second round that
+# would repeat the first: below it the launches cost more than the sync,
+# above it the sync would idle the card while the host catches up
+_SKIP_ROWS = 1 << 16
 
 
-def _f32_rays(o, v):
-    if o.dtype != torch.float32 or v.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{o.dtype} rays: the port traces float32 through its kernels; "
-            "the f64 trace path (ndt_tpu/render/intersect.py) is not ported "
-            "(ROADMAP Queue 1 item 4)")
+def _dense_scene(scn: DeviceScene):
+    if scn.dense is None:
+        raise TypeError(
+            "float64 rays trace through the scene's float64 blocks: compile "
+            "it with compile_scene(scene, np.float64)")
+    return scn.dense
+
+
+def _gather_props(dense, mat, hit):
+    """The winner's material (trace._gather_props): zeros and ior 1 on a
+    miss."""
+    safe = mat.clamp_min(0)
+    m = hit[:, None]
+    return dict(color=torch.where(m, dense.color[safe], 0.0),
+                reflect=torch.where(m, dense.reflect[safe], 0.0),
+                transparent=torch.where(hit, dense.transparent[safe], 0.0),
+                ior=torch.where(hit, dense.refract_index[safe], 1.0))
+
+
+def _refine_winner(blocks, idx, o, v, t_min, hit):
+    """The hit-local re-solve of the winning leaf's root for the curved
+    families (intersect.REFINERS); planar winners pass unchanged.
+    Returns (t refined, valid): a margin-band candidate the refiner shows
+    to be a miss comes back invalid."""
+    valid = torch.ones_like(hit)
+    off = 0
+    for name, blk in blocks:
+        n_b = blk.mat_id.shape[0]
+        refiner = intersect.REFINERS.get(name)
+        if refiner is not None:
+            in_block = hit & (idx >= off) & (idx < off + n_b)
+            rows = (idx - off).clamp(0, n_b - 1)
+            t_new, ok = refiner(blk, rows, o, v, t_min)
+            t_min = torch.where(in_block, t_new, t_min)
+            valid = torch.where(in_block, ok, valid)
+        off += n_b
+    return t_min, valid
+
+
+def _closest_with_refine(blocks, t_all, o, v, rounds=2):
+    """argmin and the winner's refinement, the argmin re-run once past a
+    candidate the refiner rejects (so the leaf behind a rejected
+    silhouette wins instead of a hole).  torch.argmin returns the first
+    minimum, as jnp.argmin: the earlier leaf wins a tie.  ``t_all`` is
+    overwritten.  Returns (winner [R], t [R]).
+
+    Where no candidate is rejected the second round repeats the first to
+    the bit; a batch of at most _SKIP_ROWS rays (the stack loop's tails,
+    whose cost is the count of ops, not their size) checks whether one
+    was, and skips it if not."""
+    for k in range(rounds):
+        idx = torch.argmin(t_all, dim=1)
+        t_min = t_all.gather(1, idx[:, None])[:, 0]
+        hit = t_min < BIG * 0.5
+        t_ref, valid = _refine_winner(blocks, idx, o, v, t_min, hit)
+        if k == rounds - 1:
+            break
+        reject = hit & ~valid
+        if t_all.shape[0] <= _SKIP_ROWS and not bool(reject.any()):
+            break
+        t_all.scatter_(1, idx[:, None],
+                       torch.where(reject, BIG, t_min)[:, None])
+    return idx, t_ref
+
+
+def _distances(blocks, o, v, exclude_mat=None):
+    """[R, N] hit distances over every block, in global leaf order."""
+    pre = intersect.ray_precompute(o, v)
+    ts = []
+    for name, blk in blocks:
+        t = intersect.KERNELS[name][0](blk, o, v, pre)
+        if exclude_mat is not None:
+            t = torch.where(blk.mat_id[None, :] == exclude_mat[:, None],
+                            BIG, t)
+        ts.append(t)
+    return torch.cat(ts, 1) if len(ts) > 1 else ts[0]
+
+
+def _normals(blocks, idx, o, v, t):
+    """The winner's raw normal [R, D]."""
+    point = o + v * t[:, None]
+    normal = torch.zeros_like(o)
+    off = 0
+    for name, blk in blocks:
+        n_b = blk.mat_id.shape[0]
+        in_block = (idx >= off) & (idx < off + n_b)
+        rows = (idx - off).clamp(0, n_b - 1)
+        nb = intersect.KERNELS[name][1](blk, rows, point, o, v, t)
+        normal = torch.where(in_block[:, None], nb, normal)
+        off += n_b
+    return normal
+
+
+def _dense_closest(dense, o, v, need_normal):
+    idx, t = _closest_with_refine(dense.blocks,
+                                  _distances(dense.blocks, o, v), o, v)
+    nrm = _normals(dense.blocks, idx, o, v, t) if need_normal else None
+    return t, dense.mat[idx], nrm
+
+
+def _dense_any(dense, o, v, exclude_mat):
+    t_all = _distances(dense.blocks, o, v, exclude_mat)
+    idx = torch.argmin(t_all, dim=1)
+    return t_all.gather(1, idx[:, None])[:, 0], dense.mat[idx], None
+
+
+def _dense_shadow(dense, o, v, limit):
+    """The scan-order truncation of trace.shadow_trace: the infinite
+    leaves hit within ``limit`` truncate, at the first one by scan rank,
+    which infinite leaves may win; the finite leaves are a plain closest
+    hit."""
+    t_all = _distances(dense.blocks, o, v)
+    if dense.n_inf:
+        rank = dense.rank[None, :]
+        is_inf = rank < NOT_INFINITE
+        within = (t_all < BIG * 0.5) & (t_all < limit[:, None]) & is_inf
+        first = torch.where(within, rank, NOT_INFINITE).amin(1)
+        elig = ~is_inf | (rank <= first[:, None])
+        t_all = torch.where(elig, t_all, BIG)
+    idx, t = _closest_with_refine(dense.blocks, t_all, o, v)
+    return t, dense.mat[idx], None
+
+
+def _dense_call(scn, fn, o, v, live, *rows):
+    """Run fn(dense, o, v, *rows) -> (t, mat, normal or None) over the
+    live lanes (``live`` None: every lane) in chunks of at most
+    _DENSE_ELEMS ray-leaf pairs; ``rows`` are per-ray tensors or None.
+    The dead lanes come back a miss with a zero normal."""
+    dense = _dense_scene(scn)
+    R, D = o.shape
+    sel = None
+    if live is not None and not bool(live.all()):
+        sel = torch.nonzero(live)[:, 0]
+        rows = tuple(None if r is None else r[sel] for r in rows)
+    oc, vc = (o, v) if sel is None else (o[sel], v[sel])
+    step = max(1, _DENSE_ELEMS // dense.mat.shape[0])
+    outs = [fn(dense, oc[r0:r0 + step], vc[r0:r0 + step],
+               *(None if r is None else r[r0:r0 + step] for r in rows))
+            for r0 in range(0, max(1, oc.shape[0]), step)]
+    t, mat, nrm = (None if outs[0][k] is None
+                   else torch.cat([x[k] for x in outs]) for k in range(3))
+    if sel is None:
+        return t, mat, nrm
+    t_full = o.new_full((R,), BIG)
+    mat_full = torch.full((R,), -1, dtype=torch.int64, device=o.device)
+    t_full[sel], mat_full[sel] = t, mat
+    if nrm is not None:
+        nrm_full = o.new_zeros((R, D))
+        nrm_full[sel] = nrm
+        nrm = nrm_full
+    return t_full, mat_full, nrm
+
+
+def _dense_trace(scn, o, v, need_normal, live):
+    t, mat, nrm = _dense_call(
+        scn, lambda d, o, v: _dense_closest(d, o, v, need_normal), o, v,
+        live)
+    tr = _hit(o, v, t, mat, normal=nrm)
+    return tr._replace(**_gather_props(scn.dense, tr.mat, tr.hit))
+
+
+# --------------------------------------------------------------------------
+# the trace API: on float32 rays one cull and one kernel launch each, on
+# float64 rays the dense path
+
+
+def _f64_rays(o, v):
+    """True for float64 rays (the dense path), False for float32 (the
+    kernels); any other dtype raises."""
+    if o.dtype != v.dtype or o.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"rays of {o.dtype} / {v.dtype}: the port traces "
+                        "float32 (its kernels) or float64 (the dense path)")
+    return o.dtype == torch.float64
 
 
 def trace(scn: DeviceScene, o, v, need_normal=True, live=None) -> Hit:
-    """Closest hit of rays (o, v) [R, D] f32 against the scene
-    (trace.trace).  ``live`` [R] bool marks the lanes whose result the
-    caller uses: the cull bounds each tile over them, and with the early
-    exit a dead lane walks nothing (its result is then a miss).  With the
-    normal: trace_closest, the winner's material properties from the
-    kernel (zeros on a miss); without it: the any-mode walk, the
-    properties gathered from the material table (ior 1 on a miss)."""
-    _f32_rays(o, v)
+    """Closest hit of rays (o, v) [R, D] against the scene (trace.trace).
+    ``live`` [R] bool marks the lanes whose result the caller uses: the
+    cull bounds each tile over them, and with the early exit a dead lane
+    walks nothing (its result is then a miss).  float32 with the normal:
+    trace_closest, the winner's material properties from the kernel
+    (zeros on a miss); without it: the any-mode walk, the properties
+    gathered from the material table (ior 1 on a miss).  float64: the
+    dense path, the properties gathered."""
+    if _f64_rays(o, v):
+        return _dense_trace(scn, o, v, need_normal, live)
     if need_normal:
         R = o.shape[0]
         _, _, _, t, mat, nrm, props = _trace_padded(scn, o, v, live)
@@ -316,7 +502,9 @@ def occlusion_trace(scn: DeviceScene, o, v, exclude_mat=None,
     the closest t and material through the any-mode walk, no normal.
     ``exclude_mat`` [R] int: per ray, candidates of that material are
     skipped."""
-    _f32_rays(o, v)
+    if _f64_rays(o, v):
+        return _hit(o, v, *_dense_call(scn, _dense_any, o, v, live,
+                                       exclude_mat)[:2])
     o_p, v_p, _, cull = _walk_inputs(scn, o, v, live)
     t, mat = trace_any(scn, o_p, v_p,
                        _excl(exclude_mat, o_p.shape[0], o.device), *cull)
@@ -331,7 +519,9 @@ def shadow_trace(scn: DeviceScene, o, v, limit, live=None) -> Hit:
     result is the closest of those and of the finite leaves.  The cull
     drops leaves beyond the limit; with the early exit a lane stops once
     no candidate can come within limit * (1 + 1e-3) + 0.01."""
-    _f32_rays(o, v)
+    if _f64_rays(o, v):
+        return _hit(o, v, *_dense_call(scn, _dense_shadow, o, v, live,
+                                       limit.to(o.dtype))[:2])
     R = o.shape[0]
     R_pad = R + (-R) % RT
     lim_p = _pad_to(limit.to(torch.float32), R_pad, 0.0).contiguous()

@@ -28,10 +28,13 @@ padded geometry boxes for the tile cull, the hplane radius2 clamp, material
 ids, shadow ranks, the material property table, the quadric gate boxes
 deduped per kd item, the facet and hfacet rows), kept as tensors in global
 memory rather than SMEM-flattened rows; the facet and hfacet gate boxes are
-[n, B, D, 2] tables beside their rows.
+[n, B, D, 2] tables beside their rows.  A scene compiled in float64
+(``compile_scene(scn, np.float64)``, every block field in f64) also
+uploads its blocks as they are (``DenseScene``), for the float64 rays'
+dense trace path.
 
-``scene_from_numpy`` carries a scene compiled by the JAX package over, so a
-test can run both packages on identical data.
+``scene_from_numpy`` carries a scene compiled by the JAX package over, in
+its own dtype, so a test can run both packages on identical data.
 
 Clusters are culling containers: ``_flatten`` walks their children, which
 keep their own materials.  Past _KD_EXACT_MAX kd items the gates come from
@@ -932,12 +935,52 @@ def pack_tables(sd: SceneData) -> dict:
 
 
 @dataclasses.dataclass(frozen=True)
+class DenseScene:
+    """The compiled scene's blocks as float64 tensors on one device, for
+    the dense trace path (render/intersect.py): per family its block
+    dataclass holding tensors, in the trace's block order, and the
+    per-leaf material ids and shadow ranks and the material table in the
+    same global leaf order."""
+
+    blocks: tuple            # of (field name, block of tensors)
+    mat: torch.Tensor        # [N] int64
+    rank: torch.Tensor       # [N] int64 infinite-scan position
+    n_inf: int               # leaves with a scan rank
+    color: torch.Tensor      # [M, 3]
+    reflect: torch.Tensor    # [M, 3]
+    transparent: torch.Tensor  # [M]
+    refract_index: torch.Tensor  # [M]
+
+
+def _dense_scene(sd: SceneData, device) -> DenseScene:
+    def t(x):
+        return torch.as_tensor(np.asarray(x), device=device)
+
+    host = [(field, cls, getattr(sd, field))
+            for field, cls in _BLOCK_TYPES.items()
+            if getattr(sd, field) is not None]
+    blocks = tuple((field, cls(**{f.name: t(getattr(blk, f.name))
+                                  for f in dataclasses.fields(cls)}))
+                   for field, cls, blk in host)
+    mat = np.concatenate([b.mat_id for _, _, b in host]).astype(np.int64)
+    rank = np.concatenate([b.shadow_rank for _, _, b in host]
+                          ).astype(np.int64)
+    return DenseScene(
+        blocks=blocks, mat=t(mat), rank=t(rank),
+        n_inf=int((rank < NOT_INFINITE).sum()), color=t(sd.color),
+        reflect=t(sd.reflect), transparent=t(sd.transparent),
+        refract_index=t(sd.refract_index))
+
+
+@dataclasses.dataclass(frozen=True)
 class DeviceScene:
     """The kernels' view of a compiled scene: contiguous tensors on one
     device (see pack_tables for the layouts) plus the static family sizes,
     the quadric axis count A, the gate box counts B of the quadric, facet
     and hfacet blocks, the infinite leaves' (gid, rank) and the host
-    SceneData they came from (lights, background)."""
+    SceneData they came from (lights, background).  A scene compiled in
+    float64 also carries its blocks as float64 tensors (``dense``), which
+    the float64 rays' dense trace path reads; else ``dense`` is None."""
 
     dim: int
     n_sph: int
@@ -975,6 +1018,7 @@ class DeviceScene:
     aabb: torch.Tensor
     props: torch.Tensor
     host: SceneData
+    dense: Optional[DenseScene] = None
 
     @property
     def n_total(self):
@@ -986,8 +1030,10 @@ class DeviceScene:
 
 
 def to_device(sd: SceneData, device) -> DeviceScene:
-    """Upload the scene's kernel tables to ``device``."""
+    """Upload the scene's kernel tables to ``device`` and, for a scene
+    compiled in float64, its float64 blocks beside them (``dense``)."""
     tab = pack_tables(sd)
+    f64 = np.asarray(sd.color).dtype == np.float64
     return DeviceScene(
         dim=sd.dim, n_sph=tab["sph"].shape[0], n_pln=tab["pln"].shape[0],
         n_quad=tab["qbase"].shape[0], n_fct=tab["fct"].shape[0],
@@ -997,5 +1043,6 @@ def to_device(sd: SceneData, device) -> DeviceScene:
         b_fct=tab["fgt"].shape[1], b_hf=tab["hgt"].shape[1],
         inf_gids=tuple(map(tuple, tab["inf"].tolist())),
         has_transparent=sd.has_transparent, host=sd,
+        dense=_dense_scene(sd, device) if f64 else None,
         **{k: torch.as_tensor(a, device=device).contiguous()
            for k, a in tab.items()})

@@ -4,6 +4,7 @@ JAX runs on the CPU (conftest.py); data crosses between the packages as
 numpy arrays, float32 made explicit because conftest turns on x64."""
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -15,8 +16,53 @@ W, H = 64, 48
 COLOR_TOL, COLOR_FRAC, NXT_AGREE, CARRY_TOL = 1e-3, 0.002, 0.999, 1e-5
 
 
+# how long a test waits for a host library that another pytest worker is
+# still building (g++ takes ~10-30 s for either package's sources)
+NATIVE_WAIT_S = 180.0
+
+
+def ensure_native(mod, what, wait=NATIVE_WAIT_S):
+    """Make sure ``mod.get_lib()`` (``ndt_tpu.native`` or
+    ``ndt_tpu_torch.native``) has loaded its host library before a test
+    compares host bits, and return it.
+
+    The JAX package builds its library in place, with no temporary name
+    and no lock, and skips the build when the file exists; under several
+    pytest workers on a fresh tree one worker can open a file another is
+    still writing.  Its get_lib() then latches None for the rest of the
+    process and its scene preparation quietly takes the numpy bounding
+    fits, whose bounds differ in the last bits.  So a latched None is
+    retried (the latch cleared) until the library loads or ``wait``
+    seconds pass; then the test fails here, naming the library, rather
+    than as a bounds mismatch later."""
+    lib = mod.get_lib()
+    deadline = time.monotonic() + wait
+    while lib is None and time.monotonic() < deadline:
+        time.sleep(0.5)
+        mod._TRIED = False
+        lib = mod.get_lib()
+    if lib is None:
+        raise AssertionError(
+            f"{what}'s host library ({mod.__name__}.get_lib()) did not load "
+            f"within {wait:.0f} s: the host-bit comparisons need it")
+    return lib
+
+
+def ensure_jax_native():
+    import ndt_tpu.native as jn
+
+    return ensure_native(jn, "the JAX package")
+
+
+def ensure_port_native():
+    import ndt_tpu_torch.native as pn
+
+    return ensure_native(pn, "the port")
+
+
 def jax_balls():
     """The JAX package's host Scene of balls 4-D frame 0, aimed."""
+    ensure_jax_native()
     from ndt_tpu.scene import Scene
     from ndt_tpu.scenes import get_scene
 
@@ -30,6 +76,7 @@ def jax_balls():
 
 def port_balls():
     """The port's host Scene of balls 4-D frame 0, aimed."""
+    ensure_port_native()
     from ndt_tpu_torch.scene import Scene
     from ndt_tpu_torch.scenes import get_scene
 
@@ -43,6 +90,7 @@ def port_balls():
 
 def jax_scene(name, dim, frame=0, frames=1, config=None):
     """The JAX package's host Scene of a registered scene, aimed."""
+    ensure_jax_native()
     from ndt_tpu.scene import Scene
     from ndt_tpu.scenes import get_scene
 
@@ -54,6 +102,7 @@ def jax_scene(name, dim, frame=0, frames=1, config=None):
 
 def port_scene(name, dim, frame=0, frames=1, config=None):
     """The port's host Scene of a registered scene, aimed."""
+    ensure_port_native()
     from ndt_tpu_torch.scene import Scene
     from ndt_tpu_torch.scenes import get_scene
 
@@ -307,8 +356,8 @@ def seeded_rays(dim, R=4096):
     return o.astype(np.float32), v.astype(np.float32), rng.random(R) < 0.9
 
 
-def aimed_rays(sd, origin, seed, R=4096):
-    """(o, v, live) float32 numpy: R rays from around ``origin`` toward
+def aimed_rays(sd, origin, seed, R=4096, dtype=np.float32):
+    """(o, v, live) ``dtype`` numpy: R rays from around ``origin`` toward
     seeded points near the finite leaves' bounding spheres of a compiled
     scene (the JAX package's SceneData or the port's), 90% live."""
     rng = np.random.default_rng(seed)
@@ -322,26 +371,24 @@ def aimed_rays(sd, origin, seed, R=4096):
     k = rng.integers(0, len(c), R)
     d = c[k] + rng.normal(size=(R, dim)) * (0.5 * r[k])[:, None] - o
     v = d / np.linalg.norm(d, axis=1, keepdims=True)
-    return o.astype(np.float32), v.astype(np.float32), rng.random(R) < 0.9
+    return o.astype(dtype), v.astype(dtype), rng.random(R) < 0.9
 
 
-def port_band(scn, width, height, rows):
+def port_band(scn, width, height, rows, dtype="float32"):
     """Rows ``rows`` of the port's CPU render of an aimed host Scene at
-    width x height, as the golden PNGs hold them (bytes / 255), and the
-    rays it traced."""
+    width x height in ``dtype``, as the golden PNGs hold them (bytes /
+    255), and the rays it traced."""
     from ndt_tpu_torch.image_io import linear_to_bytes
     from ndt_tpu_torch.render.engine import (RenderOptions, _pixel_grid,
-                                             render_tile)
+                                             frame_camera, render_tile)
     from ndt_tpu_torch.scene import compile_scene, to_device
 
-    sd = to_device(compile_scene(scn), "cpu")
-    cam = scn.cam.data(device="cpu")
-    cam = dataclasses.replace(
-        cam, dir_x=cam.dir_x * float(np.float32(width / height)))
-    xx, yy = _pixel_grid(width, height, np.float32)
+    opts = RenderOptions(width=width, height=height, dtype=dtype)
+    sd = to_device(compile_scene(scn, np.dtype(dtype).type), "cpu")
+    cam = frame_camera(scn, opts, "cpu")
+    xx, yy = _pixel_grid(width, height, np.dtype(dtype))
     c, _, n = render_tile(sd, cam, torch.as_tensor(xx[rows].ravel()),
-                          torch.as_tensor(yy[rows].ravel()),
-                          RenderOptions(width=width, height=height))
+                          torch.as_tensor(yy[rows].ravel()), opts)
     return linear_to_bytes(c.numpy().reshape(-1, width, 3)) / 255.0, int(n)
 
 

@@ -8,7 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_common import reset_port_scenes
+from _torch_common import (ensure_jax_native, ensure_native,
+                           ensure_port_native, reset_port_scenes)
 
 
 @pytest.fixture(autouse=True)
@@ -37,6 +38,27 @@ def test_drand48_stream_equals_jax_package(seed):
                                                  for _ in range(16)]
 
 
+@pytest.mark.parametrize("package", ["ndt_tpu", "ndt_tpu_torch"])
+def test_latched_host_library_recovers(package, monkeypatch):
+    """A get_lib() that latched None while another worker was still writing
+    the library (the JAX package builds it in place) is retried by the
+    tests' helper until the library loads; one that never loads fails with
+    a message naming it, not as a bounds mismatch."""
+    import importlib
+
+    mod = importlib.import_module(f"{package}.native")
+    lib = ensure_native(mod, package)
+    monkeypatch.setattr(mod, "_LIB", None)
+    monkeypatch.setattr(mod, "_TRIED", True)
+    assert mod.get_lib() is None               # latched
+    assert ensure_native(mod, package, wait=30.0) is not None
+    assert mod.get_lib() is not None
+    monkeypatch.setattr(mod, "get_lib", lambda: None)
+    with pytest.raises(AssertionError, match="host library.*did not load"):
+        ensure_native(mod, package, wait=1.0)
+    assert lib is not None
+
+
 @pytest.mark.parametrize("native", [True, False])
 def test_bounding_sphere_equals_jax_package(native, monkeypatch):
     """Seeded point sets (with radii) fit to the same bits through the
@@ -50,7 +72,8 @@ def test_bounding_sphere_equals_jax_package(native, monkeypatch):
         monkeypatch.setattr(jn, "get_lib", lambda: None)
         monkeypatch.setattr(pn, "get_lib", lambda: None)
     else:
-        assert pn.get_lib() is not None and jn.get_lib() is not None
+        ensure_port_native()
+        ensure_jax_native()
     rng = np.random.default_rng(4)
     for dim in (3, 4, 6):
         for n in (2, 4, 9):

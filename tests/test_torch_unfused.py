@@ -514,19 +514,24 @@ def test_all_ambient_scene_renders_on_card():
 
 
 def test_trace_api_refuses_f64_rays():
-    """The f64 jnp trace path is not ported: float64 rays raise."""
+    """float64 rays trace through the scene's float64 blocks (the dense
+    path): on a scene compiled in float32 the trace API refuses them,
+    naming the float64 compile, as it refuses rays of any other dtype
+    than float32 and float64."""
     from ndt_tpu_torch.render.trace import (occlusion_trace, shadow_trace,
                                             trace)
     from ndt_tpu_torch.scene import compile_scene, to_device
 
     scn = to_device(compile_scene(small_scene(port=True)), "cpu")
-    o = torch.zeros((8, 4), dtype=torch.float64)
-    v = torch.ones((8, 4), dtype=torch.float64)
-    for call in (lambda: trace(scn, o, v),
-                 lambda: occlusion_trace(scn, o, v),
-                 lambda: shadow_trace(scn, o, v, torch.ones(8))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            call()
+    for dt, err, match in ((torch.float64, TypeError, "np.float64"),
+                           (torch.float16, TypeError, "float32 .* float64")):
+        o = torch.zeros((8, 4), dtype=dt)
+        v = torch.ones((8, 4), dtype=dt)
+        for call in (lambda: trace(scn, o, v),
+                     lambda: occlusion_trace(scn, o, v),
+                     lambda: shadow_trace(scn, o, v, torch.ones(8))):
+            with pytest.raises(err, match=match):
+                call()
 
 
 # --------------------------------------------------------------------------

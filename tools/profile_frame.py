@@ -6,7 +6,7 @@
                                             hypercube_walls|cluster5d|
                                             random600]
                                    [--width W --height H] [--unfused]
-                                   [--trace PATH]
+                                   [--dtype float32|float64] [--trace PATH]
 
 Renders one of the port's frames through its render_frame on the card:
 the 4-D balls scene, frame 0 (1920x1080 by default); the 6-D anim6d scene,
@@ -24,7 +24,10 @@ point lights); or random "600" 5-D (640x480, the random600_5d bench config:
 10,533 leaves behind budgeted kd gates, the early exit).
 ``--unfused`` renders on the engine's unfused branch (trace, then
 apply_lights with its stacked shadow_trace / occlusion_trace launches:
-engine._FUSED_SHADOW = False, what NDT_FUSED_SHADOW=0 selects).  Two
+engine._FUSED_SHADOW = False, what NDT_FUSED_SHADOW=0 selects).
+``--dtype float64`` renders the float64 frame (always the unfused branch,
+traced by the dense path: its per-family distances, the argmin and
+refinement and the winners' normals are spans of their own).  Two
 warm-up frames (one for anim6d and test), three timed frames (host clock
 around torch.cuda.synchronize()), then one frame under torch.profiler (CPU
 + CUDA activities).  The profiled frame's functions
@@ -85,6 +88,9 @@ SPANS = {
     ("trace", "trace_shadow"): "trace_shadow",
     ("trace", "shade_carry"): "shade_carry",
     ("trace", "shade_local"): "shade_local",
+    ("trace", "_distances"): "dense distances",
+    ("trace", "_closest_with_refine"): "dense argmin + refine",
+    ("trace", "_normals"): "dense normals",
 }
 # name -> (scene, D, frame, frames, config, default width, height)
 SCENES = {"balls": ("balls", 4, 0, 1500, None, 1920, 1080),
@@ -247,6 +253,8 @@ def main():
     ap.add_argument("--height", type=int)
     ap.add_argument("--unfused", action="store_true",
                     help="the engine's unfused branch (trace, apply_lights)")
+    ap.add_argument("--dtype", choices=("float32", "float64"),
+                    default="float32", help="the frame's float type")
     ap.add_argument("--trace", help="keep the chrome trace at this path")
     args = ap.parse_args()
 
@@ -269,7 +277,7 @@ def main():
     build.load_library()
     W = args.width or SCENES[args.scene][5]
     H = args.height or SCENES[args.scene][6]
-    opts = RenderOptions(width=W, height=H)
+    opts = RenderOptions(width=W, height=H, dtype=args.dtype)
     scn = make_scene(args.scene)
     for _ in range(1 if args.scene in ("anim6d", "test", "random600")
                    else 2):
@@ -281,7 +289,8 @@ def main():
         _, _, rays = render_frame(scn, opts, device="cuda")
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    branch = "unfused" if args.unfused else "fused"
+    branch = ("unfused" if args.unfused or args.dtype == "float64"
+              else "fused")
     print(f"[frame] {args.scene} {W}x{H} ({branch}) on {card}: unprofiled "
           f"s/frame "
           f"{', '.join(f'{t:.4f}' for t in times)}; {rays} rays/frame")
@@ -302,7 +311,8 @@ def main():
                        key=lambda kv: -kv[1]["ms"]):
         print(f"  {d['ms']:10.3f} ms {d['calls']:6d}  {k}")
     print(json.dumps(dict(card=card, scene=args.scene, width=W, height=H,
-                          branch=branch, rays=rays, unprofiled_s=times,
+                          branch=branch, dtype=args.dtype, rays=rays,
+                          unprofiled_s=times,
                           **res)))
     return 0
 
