@@ -128,10 +128,11 @@ nonzero with no "ok" line):
   B. the command line at full width through cli.main in a temporary
      directory, each run with the launch counters set to 0 just before it
      and read just after: balls 4-D 1080p frames 0-2, the test scene 4-D
-     640x480 -w -q med (bench.py's builtin_qmed) and balls 4-D 1080p
-     -n 4 (adaptive sampling); every written PNG, decoded by the port's
-     reader, equal to the bytes of the frame render_frame returned; the
-     builtin_qmed frame held in the large to the C golden of the plain
+     640x480 -w -a 1,2 -l 6 (bench.py's builtin_qmed, -q med, with its
+     optic depth cut from 20 to 6 to fit the call: QMED_DEPTH) and balls
+     4-D 1080p -n 4 (adaptive sampling); every written PNG, decoded by the
+     port's reader, equal to the bytes of the frame render_frame returned;
+     the builtin_qmed frame held in the large to the C golden of the plain
      test 4-D 640x480 frame, the -n 4 frame to the first run's frame 0
      (mean |diff| bars QMED_BAR, ADAPTIVE_BAR);
      s/frame with the saves and without, the Whitted levels and resampled
@@ -148,7 +149,20 @@ nonzero with no "ok" line):
      path walked in chunks equal to the one-piece walk to the bit, and
      its bits against the CPU's; balls 4-D 1920x1080 in f64 timed
      (median of 3): s/frame, Mrays/s, peak device memory, and one frame
-     profiled: the busy share and where the time goes.
+     profiled: the busy share and where the time goes;
+  M. multi-GPU rendering on the one card (parallel/mesh.py,
+     parallel/distributed.py, the CLI's -b): a frame split over
+     ("cuda:0", "cuda:0") -- balls 4-D f0 1920x1080 equal to the plain
+     frame to the bit, both timed (median of 3), the launch counters set
+     to 0 just before the split frames and read just after, and how much
+     of the time both host threads worked at once; test 4-D 640x480 at
+     -l MULTI_DEPTH within the f32 frame bar, its differing pixels
+     counted --; cli.main -b r on balls 1080p f0 writing the plain run's
+     PNG bytes; and two processes on the card in gloo process groups:
+     -b F on balls 1080p f0:3, -b f on anim6d 640x480 f0:1 (process 1
+     renders both), -b r on balls 1080p f0 (all-gathered), every PNG
+     equal to the single-process run's bytes, with the one-process -b F
+     run timed against the two processes'.
 The second-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}.  JAX is never imported.
 
@@ -221,11 +235,14 @@ TEST_BAND_RMSE = 2e-3    # tests/test_render.py's f32 bar, rows 220:260
 # phase B's bars on the mean |diff| of 8-bit pixels (in 0-1), twice what the
 # same comparison gives with the CPU twins at a smaller size
 # (scripts/cli_frame_bars.py): test 4-D 40x30 -w -q med against the plain
-# frame 6.22e-3, balls 4-D 384x216 -n 4 against the plain frame 4.17e-3
-# (1.30e-2 at 96x54, 8.12e-3 at 192x108: the share of edge pixels falls
-# with the size)
+# frame 6.22e-3 (6.36e-3 at -l 6), balls 4-D 384x216 -n 4 against the
+# plain frame 4.17e-3 (1.30e-2 at 96x54, 8.12e-3 at 192x108: the share of
+# edge pixels falls with the size)
 QMED_BAR = 1.25e-2
 ADAPTIVE_BAR = 8.3e-3
+# the optic depth of phase B's builtin_qmed run, cut from -q med's 20: its
+# three refinement levels of 4.79 M points took 150 s of the call at 20
+QMED_DEPTH = 6
 EXIT_TIE_FRAC = 1e-3     # live hit lanes whose normal comes from a t tie
 # the optic depth (-l) of test 4-D's two profiled frames (fused, unfused):
 # at the default 128 each frame is ~700k launches, whose chrome trace takes
@@ -2546,9 +2563,10 @@ CLI_RUNS = (
     ("balls 4-D 1080p f0:2", ["-s", "balls", "-d", "4", "-f", "0:2",
                               "-r", "1080p"],
      ("trace_closest", "shade_carry"), None, None),
-    ("test 4-D 640x480 -w -q med (builtin_qmed)",
-     ["-s", "test", "-d", "4", "-f", "0:0", "-r", "640x480", "-w", "-q",
-      "med"],
+    (f"test 4-D 640x480 -w -a 1,2 -l {QMED_DEPTH} (builtin_qmed's -q med "
+     "at a cut depth)",
+     ["-s", "test", "-d", "4", "-f", "0:0", "-r", "640x480", "-w", "-a",
+      "1,2", "-l", str(QMED_DEPTH)],
      ("trace_gated", "trace_facets", "shade_facets", "shade_point"),
      "test_4d_640x480_f0.png", QMED_BAR),
     ("balls 4-D 1080p -n 4 f0", ["-s", "balls", "-d", "4", "-f", "0:0",
@@ -2662,6 +2680,308 @@ def phase_cli(torch, K, card):
     return ok
 
 
+# --------------------------------------------------------------------------
+# phase M: multi-GPU rendering on the one card
+
+# the devices of the pixel split: two places on the card, each rendering
+# its slice from a host thread of its own, on a stream of its own
+SPLIT_PLACES = ("cuda:0", "cuda:0")
+# the optic depth (-l) of test 4-D's split frame, cut from 128 to fit the
+# phase's 90 s (the split frame takes three times the plain frame's time):
+# a lane's stack still holds up to 63 nodes
+MULTI_DEPTH = 6
+MULTI_CHILD_TIMEOUT_S = 240
+
+# the two processes' runs, each in a process group of its own (one port
+# each): label, cli argv (without the rendezvous flags), the frames
+MULTI_RUNS = (
+    ("-b F balls 4-D 1080p f0:3 (each process its stride)",
+     ["-s", "balls", "-d", "4", "-f", "0:3", "-r", "1080p", "-b", "F"],
+     range(4)),
+    ("-b f anim6d 6-D 640x480 f0:1 (process 1 renders both)",
+     ["-s", "anim6d", "-d", "6", "-f", "0:1", "-r", "640x480", "-b", "f"],
+     range(2)),
+    ("-b r balls 4-D 1080p f0 (the frame split over both processes, "
+     "all-gathered)",
+     ["-s", "balls", "-d", "4", "-f", "0:0", "-r", "1080p", "-b", "r"],
+     range(1)),
+)
+
+MULTI_CHILD = r"""
+import json, os, sys, time
+root, ports, pid, runs = (sys.argv[1], sys.argv[2].split(","),
+                          int(sys.argv[3]), json.loads(sys.argv[4]))
+sys.path.insert(0, root)
+import torch
+import torch.distributed as dist
+from chip_smoke import balls_scene, fresh
+from ndt_tpu_torch import cli
+from ndt_tpu_torch.render.engine import RenderOptions, render_frame
+# warm: the kernel library loaded, a 1080p frame's memory allocated
+render_frame(balls_scene(), RenderOptions(width=1920, height=1080))
+torch.cuda.synchronize()
+for port, (workdir, argv) in zip(ports, runs):
+    os.chdir(workdir)
+    fresh(argv[1])
+    t0 = time.perf_counter()
+    rc = cli.main(argv + ["--coordinator", f"localhost:{port}",
+                          "--num-processes", "2", "--process-id", str(pid)])
+    dist.destroy_process_group()
+    print(f"[child {pid}] {argv}: rc {rc}, {time.perf_counter() - t0:.3f} s "
+          "in cli.main", flush=True)
+    if rc:
+        sys.exit(rc)
+"""
+
+
+def free_ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("localhost", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def fresh(name):
+    """Reset a scene module's state (balls' physics), so that a run of the
+    command line starts from frame 0's state."""
+    from ndt_tpu_torch.scenes import get_scene
+
+    getattr(get_scene(name), "scene_cleanup", lambda: None)()
+
+
+def cli_pngs(argv, workdir, frames, name, dims, size):
+    """Run cli.main(argv) in ``workdir`` (the card) from a fresh scene
+    module: (the PNG file bytes of ``frames``, the run's seconds)."""
+    from ndt_tpu_torch import cli
+
+    here = os.getcwd()
+    os.chdir(workdir)
+    fresh(name)
+    try:
+        t0 = time.perf_counter()
+        rc = quiet(cli.main, argv)
+        secs = time.perf_counter() - t0
+    finally:
+        os.chdir(here)
+    if rc:
+        raise RuntimeError(f"cli.main({argv}) returned {rc}")
+    return png_bytes(workdir, frames, name, dims, size), secs
+
+
+def png_bytes(workdir, frames, name, dims, size):
+    from ndt_tpu_torch import cli
+
+    W, H = size
+    out = os.path.join(workdir, cli.output_dir(name, dims, "", "", W, H))
+    got = {}
+    for i in frames:
+        path = os.path.join(out, f"{name}_{W}x{H}_{i:04d}.png")
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                got[i] = f.read()
+    return got
+
+
+@contextlib.contextmanager
+def place_spans(mesh):
+    """Record (start, end) of every place's work in the block
+    (parallel.mesh._run, which each place's thread runs)."""
+    orig = mesh._run
+    spans = []
+
+    def run(pl, work, a, b):
+        t0 = time.perf_counter()
+        try:
+            return orig(pl, work, a, b)
+        finally:
+            spans.append((t0, time.perf_counter()))
+
+    mesh._run = run
+    try:
+        yield spans
+    finally:
+        mesh._run = orig
+
+
+def overlap_share(spans):
+    """The share of the places' union of work time in which two or more
+    of them worked at once."""
+    edges = sorted([(t, 1) for t, _ in spans] + [(t, -1) for _, t in spans])
+    busy = both = 0.0
+    depth, last = 0, None
+    for t, step in edges:
+        if last is not None and depth >= 1:
+            busy += t - last
+            if depth >= 2:
+                both += t - last
+        depth += step
+        last = t
+    return both / busy if busy else 0.0
+
+
+def phase_multi(torch, K, card):
+    """Phase M: multi-GPU rendering on the one card.
+    (a) A pixel split over SPLIT_PLACES (two host threads, one stream
+    each): balls 4-D f0 1920x1080 (fused) equal to the plain frame to the
+    bit, each timed (median of 3 after a warm-up), the launch counters set
+    to 0 just before the split frames and read just after, and the share
+    of the places' work time in which both threads worked at once; test
+    4-D f0 640x480 at -l MULTI_DEPTH (refractive: the probe and the stack
+    loop) bit-equal or within the f32 frame bar, the pixels that differ
+    counted.  (b) cli.main with -b r on balls 1080p f0 writes the plain
+    run's PNG bytes.  (c) Two processes on the card in gloo process groups
+    (MULTI_RUNS, free localhost ports): -b F on balls 1080p f0:3, -b f on
+    anim6d 640x480 f0:1 and -b r on balls 1080p f0, every PNG equal to the
+    single-process run's bytes (each run from fresh scene modules); the
+    one-process -b F animation timed against the two processes' (each
+    child's cli.main seconds after a warm-up frame, and the wall clock of
+    both children with their start-up).  A child that exits
+    non-zero, or outlasts MULTI_CHILD_TIMEOUT_S, fails the phase."""
+    import tempfile
+
+    from ndt_tpu_torch.parallel import mesh
+    from ndt_tpu_torch.render.engine import RenderOptions, render_frame
+
+    ok = True
+    opts = RenderOptions(width=1920, height=1080)
+    split = dataclasses.replace(opts, devices=SPLIT_PLACES)
+    scn = balls_scene()
+    times = {}
+    for label, o in (("plain", opts), ("split", split)):
+        quiet(render_frame, scn, o)
+        torch.cuda.synchronize()
+        if label == "split":
+            K.reset_launch_counts()
+        runs = []
+        with place_spans(mesh) as spans:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                img, _, rays = quiet(render_frame, scn, o)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+        times[label] = (float(np.median(runs)), runs, img, rays, spans)
+    launches = {k: K.launch_counts[k] for k in ("trace_closest",
+                                                "shade_carry")}
+    (sp, sruns, a, na, _), (ss, truns, b, nb, spans) = (times["plain"],
+                                                       times["split"])
+    same = np.array_equal(a, b) and na == nb
+    fok = same and all(launches.values())
+    print(f"[multi] balls 4-D f0 1920x1080 split over {SPLIT_PLACES} on "
+          f"{card}: {'equal to' if same else 'DIFFERS from'} the plain frame "
+          f"to the bit ({int((a != b).any(-1).sum())} pixels differ; rays "
+          f"{nb} against {na}); {ss:.4f} s/frame split (median of 3: "
+          f"{', '.join(f'{x:.4f}' for x in truns)}) against {sp:.4f} plain "
+          f"({', '.join(f'{x:.4f}' for x in sruns)}): x{sp / ss:.3f}; both "
+          f"threads at work in {100 * overlap_share(spans):.1f}% of the "
+          f"places' work time; launches in the split frames {launches} "
+          f"{'ok' if fok else 'FAIL'}")
+    ok &= fok
+
+    test4 = scene("test", 4, 0, 300)
+    o4 = RenderOptions(width=640, height=480, max_optic_depth=MULTI_DEPTH)
+    out = {}
+    for label, o in (("plain", o4),
+                     ("split", dataclasses.replace(o4, devices=SPLIT_PLACES))):
+        with place_spans(mesh) as spans:
+            t0 = time.perf_counter()
+            img, _, rays = quiet(render_frame, test4, o)
+            torch.cuda.synchronize()
+            out[label] = (img, rays, time.perf_counter() - t0, spans)
+    (a, na, ta, _), (b, nb, tb, spans) = out["plain"], out["split"]
+    off = int((np.abs(a - b).max(-1) > PIXEL_TOL).sum())
+    differ = int((a != b).any(-1).sum())
+    fok = bool(np.isfinite(b).all()) and off < PIXEL_FRAC * a.shape[0] * \
+        a.shape[1]
+    print(f"[multi] test 4-D f0 640x480 -l {MULTI_DEPTH} split over "
+          f"{SPLIT_PLACES} on {card}: {differ} pixels differ from the plain "
+          f"frame, {off} by > {PIXEL_TOL} (bar < {PIXEL_FRAC:.1%}); rays "
+          f"{nb} against {na}; {tb:.4f} s split against {ta:.4f} plain (one "
+          f"frame each); both threads at work in "
+          f"{100 * overlap_share(spans):.1f}% of the places' work time "
+          f"{'ok' if fok else 'FAIL'}")
+    ok &= fok
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in ("plain", "r", "F1", "anim",
+                                                 "c0", "c1", "c2")}
+        for d in dirs.values():
+            os.makedirs(d)
+        balls = ["-s", "balls", "-d", "4", "-r", "1080p"]
+        plain, _ = cli_pngs(balls + ["-f", "0:0"], dirs["plain"], [0],
+                            "balls", 4, (1920, 1080))
+        got, _ = cli_pngs(balls + ["-f", "0:0", "-b", "r"], dirs["r"], [0],
+                          "balls", 4, (1920, 1080))
+        fok = len(plain) == 1 and got == plain
+        print(f"[multi] cli.main -b r balls 4-D 1080p f0 on {card}: the PNG "
+              f"{'equals' if fok else 'DIFFERS from'} the plain run's bytes "
+              f"{'ok' if fok else 'FAIL'}")
+        ok &= fok
+
+        ref_F, one_secs = cli_pngs(balls + ["-f", "0:3", "-b", "F"],
+                                   dirs["F1"], range(4), "balls", 4,
+                                   (1920, 1080))
+        ref_f, anim_secs = cli_pngs(
+            ["-s", "anim6d", "-d", "6", "-f", "0:1", "-r", "640x480"],
+            dirs["anim"], range(2), "anim6d", 6, (640, 480))
+        refs = (ref_F, ref_f, plain)
+        child = os.path.join(tmp, "child.py")
+        with open(child, "w") as f:
+            f.write(MULTI_CHILD)
+        runs = [(dirs[f"c{k}"], argv) for k, (_, argv, _) in
+                enumerate(MULTI_RUNS)]
+        ports = ",".join(map(str, free_ports(len(runs))))
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, child, ROOT, ports, str(pid), json.dumps(runs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env) for pid in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=MULTI_CHILD_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            logs = [f"timed out after {MULTI_CHILD_TIMEOUT_S} s"] * 2
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        for pid, (p, log) in enumerate(zip(procs, logs)):
+            lines = [ln for ln in log.splitlines() if ln.startswith(
+                ("[child", "multihost", "rendered"))]
+            print(f"[multi] process {pid} exit {p.returncode}: "
+                  + " | ".join(lines))
+            if p.returncode:
+                print(log[-3000:])
+                ok = False
+        for (label, argv, frames), (workdir, _), ref in zip(
+                MULTI_RUNS, runs, refs):
+            name, dims = argv[1], int(argv[3])
+            res = argv[argv.index("-r") + 1]
+            size = (1920, 1080) if res == "1080p" else (640, 480)
+            got = png_bytes(workdir, frames, name, dims, size)
+            fok = sorted(got) == list(frames) and got == ref
+            print(f"[multi] two processes on {card}, {label}: frames "
+                  f"{sorted(got)} written, "
+                  f"{'each equal to' if fok else 'NOT equal to'} the "
+                  f"single-process run's PNG bytes {'ok' if fok else 'FAIL'}")
+            ok &= fok
+        print(f"[multi] balls 1080p f0:3 -b F: one process {one_secs:.3f} s "
+              f"in cli.main ({one_secs / 4:.4f} s/frame); two processes, each "
+              f"warmed by one frame first: each child's cli.main seconds "
+              f"above, {wall:.3f} s wall clock for the children, start-up "
+              f"included; anim6d 640x480 f0:1 in one process {anim_secs:.3f} "
+              f"s")
+    return ok
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="TREE", action="append",
@@ -2707,7 +3027,8 @@ def main(argv=None):
                                               baseline)),
               ("layouts", lambda: phase_layouts(torch, card)),
               ("cli", lambda: phase_cli(torch, K, card)),
-              ("f64", lambda: phase_f64(torch, K, card)))
+              ("f64", lambda: phase_f64(torch, K, card)),
+              ("multi", lambda: phase_multi(torch, K, card)))
     print("[yaml] YAML scenes are not run here: this machine has no PyYAML "
           "(the CPU tests hold the reader and writer)")
     for label, phase in phases:

@@ -11,7 +11,7 @@ This package imports torch and never jax, flax or any module of
 
 Layer map:
   constants     - EPSILON, BIG and the other numeric conventions
-  utils         - drand48, Nelder-Mead, bounding spheres, C-exact kd cells
+  utils         - drand48, Nelder-Mead, bounding spheres, the kd-tree
   native        - the host C++ balls stepper and bounding-sphere fit
   image_io      - the pixel model, PNG encode / decode, depth maps, the
                   background saver
@@ -26,6 +26,8 @@ Layer map:
                   refraction-stack paths, cameras, stereo layouts),
                   Whitted and adaptive refinement, the animation loop
   kernels       - nvcc build of csrc/*.cu into a ctypes library
+  parallel      - frames split over several devices, the frame modes'
+                  process group (torch.distributed over gloo)
   cli           - the `ndt` command line (python -m ndt_tpu_torch.cli)
 """
 

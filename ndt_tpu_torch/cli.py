@@ -3,7 +3,11 @@ the rebuild of ndt.c:1336-2105), flag for flag with the reference's getopt
 loop (ndt.c:1450-1747):
 
   -a diff,depth   anti-aliasing arguments (with -w)
-  -b mode         distribution mode (multi-GPU: not ported yet)
+  -b mode         distribution mode: r / p (row / pixel: each frame's
+                  pixels split over the devices), f / F (whole frames
+                  round-robin over the devices; over several processes
+                  -b f has process 0 build every scene and broadcast it,
+                  -b F gives each process its stride of the frames)
   -d dims         spatial dimensions (default 3)
   -f frames       last | first:last | first:last:total (frame-range resume,
                   ndt.c:1510-1523)
@@ -26,6 +30,14 @@ loop (ndt.c:1450-1747):
   -w              Whitted recursive anti-aliasing
   -y              write per-frame YAML scene snapshots (needs PyYAML)
   -z              record depth maps
+
+Multi-process runs (the reference's MPI ranks): --coordinator host:port
+(where process 0 listens), --num-processes N and --process-id I, or the
+NDT_COORDINATOR / NDT_NUM_PROCESSES / NDT_PROCESS_ID environment
+variables; any of them implies --multihost.  The processes join a gloo
+process group; with -b r / p each frame is split over every process's
+devices in rank order and gathered on every process, and process 0
+writes the files.
 
 Output layout (ndt.c:1840-1873):
   images/<scene>/<D>d[_<stereo>][_<cam>]/<WxH>/<scene>_<WxH>_<frame>.png
@@ -54,8 +66,6 @@ QUALITY = {"h": (17, 1, 128), "m": (2, 1, 20), "l": (0, 255, 5),
            "f": (0, 255, 1)}
 RESOLUTIONS = {"4k": (3840, 2160), "1080p": (1920, 1080),
                "720p": (1280, 720), "480p": (720, 480)}
-MULTI_GPU = ("multi-GPU rendering is not ported yet (ROADMAP Queue 1 item "
-             "10: multi-GPU)")
 
 
 def parse_frames(spec: str):
@@ -94,9 +104,13 @@ def build_argparser():
     p.add_argument("-w", dest="whitted", action="store_true")
     p.add_argument("-y", dest="write_yaml", action="store_true")
     p.add_argument("-z", dest="depth_map", action="store_true")
-    # the JAX package's multi-host bootstrap; parsed, and refused
-    p.add_argument("--multihost", action="store_true")
-    p.add_argument("--coordinator", default=None)
+    # the multi-process bootstrap (replaces mpirun's rank and size,
+    # ndt.c:1433-1436): nothing detects a cluster, so pass all three (or
+    # NDT_COORDINATOR / NDT_NUM_PROCESSES / NDT_PROCESS_ID)
+    p.add_argument("--multihost", action="store_true",
+                   help="join a multi-process run (torch.distributed, gloo)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port where process 0 listens")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     return p
@@ -117,17 +131,33 @@ def main(argv=None, device="cuda"):
     if args.help:
         build_argparser().print_help()
         return 0
-    if args.dist_mode or args.multihost or args.coordinator \
-            or args.num_processes is not None or args.process_id is not None:
-        raise NotImplementedError(MULTI_GPU)
 
     from ndt_tpu_torch.camera import CameraType, render_device
-    from ndt_tpu_torch.render.animate import render_animation
+    from ndt_tpu_torch.parallel import distributed
+    from ndt_tpu_torch.parallel.mesh import make_pixel_mesh
+    from ndt_tpu_torch.render import animate
     from ndt_tpu_torch.render.engine import RenderOptions
     from ndt_tpu_torch.scenes import get_scene
     from ndt_tpu_torch.utils.timing import Timer
 
     device = render_device(device)
+    dist_char = (args.dist_mode or "").strip()[:1]
+    dist_mode = dist_char.lower()
+    if dist_mode not in ("", "r", "p", "f"):
+        print(f"unknown distribution mode {args.dist_mode!r} (r, p, f, F)")
+        return 1
+    # --num-processes / --process-id imply a multi-process run: ignoring
+    # them would have every process render (and write) the whole job
+    multihost = (args.multihost or args.coordinator
+                 or args.num_processes is not None
+                 or args.process_id is not None
+                 or os.environ.get("NDT_COORDINATOR"))
+    proc_id, proc_count = 0, 1
+    if multihost:
+        proc_id, proc_count = distributed.init_distributed(
+            args.coordinator, args.num_processes, args.process_id)
+        print(f"multihost: process {proc_id}/{proc_count}", flush=True)
+
     width, height = 1920, 1080
     if args.resolution:
         if args.resolution in RESOLUTIONS:
@@ -186,11 +216,36 @@ def main(argv=None, device="cuda"):
     if total is None:
         total = total_frames or max(last + 1, 1)
 
+    # this process's devices: every visible card, or the CPU when named
+    local = (make_pixel_mesh() if dist_mode and device.type == "cuda"
+             else (device,))
     opts = RenderOptions(
         width=width, height=height, samples=args.samples,
         max_optic_depth=max_depth, stereo=stereo,
         specular=not args.no_specular, record_depth=args.depth_map,
-        whitted=args.whitted, aa_diff=aa_diff, aa_depth=aa_depth, seed=0)
+        whitted=args.whitted, aa_diff=aa_diff, aa_depth=aa_depth, seed=0,
+        devices=local if dist_mode in ("r", "p") else None)
+    out_dir = output_dir("SCENE", dims, mode_str, cam_str, width, height)
+
+    if dist_mode == "f":
+        # -b f = FRAME (process 0 builds every scene and broadcasts it, the
+        # others render, ndt.c:1831-1998), -b F = FRAME2 (every process
+        # replays scene_setup and renders its stride, ndt.c:55-56); in one
+        # process both are the round-robin over its devices
+        if dist_char == "f" and proc_count > 1:
+            secs, total_rays, n = animate.render_animation_coordinated(
+                mod, dims, first, last, total, opts, out_dir,
+                config=args.config, device=device)
+        else:
+            secs, total_rays, n = animate.render_animation_multidevice(
+                mod, dims, first, last, total, opts, out_dir,
+                config=args.config, devices=local,
+                frame_stride=(proc_id, proc_count) if proc_count > 1
+                else None)
+        print(f"rendered {n} frames in {secs:.1f}s "
+              f"({secs / max(n, 1):.2f} s/frame, "
+              f"{total_rays / max(secs, 1e-9) / 1e6:.1f} Mrays/s)")
+        return 0
 
     def scene_hook(scn, i):
         scn.cam.type = cam_type
@@ -198,7 +253,7 @@ def main(argv=None, device="cuda"):
             scn.cam.v_fov, scn.cam.h_fov = v_fov, h_fov
         if args.cluster:
             scn.cluster(args.cluster_k)
-        if args.write_yaml:
+        if args.write_yaml and proc_id == 0:
             from ndt_tpu_torch.scene.yaml_io import scene_write_yaml
 
             ydir = os.path.join("yaml", scn.name)
@@ -224,9 +279,8 @@ def main(argv=None, device="cuda"):
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
     with prof:
-        results, _, total_rays = render_animation(
-            mod, dims, first, last, total, opts,
-            output_dir("SCENE", dims, mode_str, cam_str, width, height),
+        results, _, total_rays = animate.render_animation(
+            mod, dims, first, last, total, opts, out_dir,
             config=args.config, scene_hook=scene_hook, progress=progress,
             device=device)
     if profile_dir:
@@ -238,9 +292,11 @@ def main(argv=None, device="cuda"):
     rendered = len(results)
     if rendered:
         # summary (ndt.c:2013-2057): s/frame and the estimated GPU time of
-        # the whole animation at this rate
+        # the whole animation at this rate on every device of the split
         spf = secs / rendered
-        est_total = spf * (total if total else rendered)
+        n_dev = (sum(distributed.place_counts(len(local))) if opts.devices
+                 else 1)
+        est_total = spf * (total if total else rendered) * n_dev
         print(f"rendered {rendered} frames in {secs:.1f}s "
               f"({spf:.2f} s/frame, "
               f"{total_rays / max(secs, 1e-9) / 1e6:.1f} Mrays/s); "

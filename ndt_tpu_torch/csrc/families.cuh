@@ -535,6 +535,22 @@ __host__ int dispatch_a(int a_quad, F&& call) {
   return -1;
 }
 
+// Make `device` the calling thread's device for the launches that follow
+// and check that the rays `p` lie in its memory.  The library links its own
+// CUDA runtime, whose current device is per thread and starts at device 0,
+// so every entry point takes the ordinal of its tensors' card; rays on
+// another card return -3.
+__host__ inline int use_device(int device, const void* p) {
+  cudaPointerAttributes at;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaPointerGetAttributes(&at, p);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // reported here, not by the next launch's check
+    return (int)err;
+  }
+  return at.type == cudaMemoryTypeDevice && at.device == device ? 0 : -3;
+}
+
 }  // namespace ndt
 
 // entry-point names of one translation unit: name_d<NDT_DIM>

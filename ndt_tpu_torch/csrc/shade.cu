@@ -518,9 +518,10 @@ shade_kernel(NdtTables tb, const float* __restrict__ o,
 // lists [n_lights, R/RT, n_list], counts [n_lights, R/RT, 5]: each light's
 // shadow-ray cull.  mode 0 carry,
 // 1 escalate (taint written), 2 local (only loc written; the carry arrays
-// may be null).  R must be a multiple of RT.  Returns a cudaError_t, -1
-// when no kernel instance fits a_quad, R or the mode, -2 for a light kind
-// it does not take.
+// may be null).  R must be a multiple of RT; device is the ordinal of the
+// card the tensors lie on.  Returns a cudaError_t, -1 when no kernel
+// instance fits a_quad, R or the mode, -2 for a light kind it does not
+// take, -3 when the rays lie on another card.
 extern "C" int NDT_ENTRY(ndt_shade)(
     const NdtTables* tb, const float* o, const float* v, const float* t,
     const int* mat, const float* nrm, const float* props, const float* lvec,
@@ -529,7 +530,7 @@ extern "C" int NDT_ENTRY(ndt_shade)(
     int n_list, int specular, int spec_pow, int mode, const float* w,
     const float* frac, const float* color, const unsigned char* live,
     float* o2, float* v2, float* w2, float* f2, float* c2, unsigned char* nxt,
-    unsigned char* taint, float* loc, int R, void* stream) {
+    unsigned char* taint, float* loc, int R, int device, void* stream) {
   if (n_lights < 1 || n_lights > MAX_LIGHTS) return -2;
   LightKinds lk;
   lk.n = n_lights;
@@ -545,6 +546,7 @@ extern "C" int NDT_ENTRY(ndt_shade)(
   if (n_area && !area) return -2;
   if (R % RT || mode < CARRY || mode > LOCAL || tb->dim != NDT_DIM)
     return -1;
+  if (const int err = use_device(device, o)) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rpb = R < SMALL_R ? SMALL_RPB : THREADS;
   return dispatch_a<NDT_DIM>(tb->a_quad, [&](auto a) {

@@ -426,8 +426,9 @@ int launch(const NdtTables* tb, const float* o, const float* v,
            const int* excl, const float* limit, const int* lists,
            const int* counts, const float* reach, const unsigned char* live,
            int n_list, const float* props, float* t_out, int* m_out,
-           float* n_out, float* p_out, int R, void* stream) {
+           float* n_out, float* p_out, int R, int device, void* stream) {
   if (R % RT || tb->dim != NDT_DIM || (live && !tb->scratch)) return -1;
+  if (const int err = use_device(device, o)) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int cap = group_cap(*tb);
   const int g = group_size(R, cap);
@@ -455,18 +456,20 @@ int launch(const NdtTables* tb, const float* o, const float* v,
 }  // namespace
 
 // R must be a multiple of RT (checked by the wrappers); reach and live are
-// both null (no early exit) or both given.  Each returns a cudaError_t, or
-// -1 when no kernel instance fits a_quad or R.
+// both null (no early exit) or both given; device is the ordinal of the
+// card the tensors lie on.  Each returns a cudaError_t, -1 when no kernel
+// instance fits a_quad or R, or -3 when the rays lie on another card.
 
 // closest: aux [R] excluded material; t, mat, normal [R, D], props [R, 8].
 extern "C" int NDT_ENTRY(ndt_trace_closest)(
     const NdtTables* tb, const float* o, const float* v, const int* aux,
     const int* lists, const int* counts, const float* reach,
     const unsigned char* live, int n_list, const float* props, float* t_out,
-    int* m_out, float* n_out, float* p_out, int R, void* stream) {
+    int* m_out, float* n_out, float* p_out, int R, int device,
+    void* stream) {
   return launch<CLOSEST>(tb, o, v, aux, nullptr, lists, counts, reach, live,
                          n_list, props, t_out, m_out, n_out, p_out, R,
-                         stream);
+                         device, stream);
 }
 
 // any: aux [R] excluded material; t and mat only.
@@ -474,10 +477,10 @@ extern "C" int NDT_ENTRY(ndt_trace_any)(
     const NdtTables* tb, const float* o, const float* v, const int* aux,
     const int* lists, const int* counts, const float* reach,
     const unsigned char* live, int n_list, float* t_out, int* m_out, int R,
-    void* stream) {
+    int device, void* stream) {
   return launch<ANY>(tb, o, v, aux, nullptr, lists, counts, reach, live,
                      n_list, nullptr, t_out, m_out, nullptr, nullptr, R,
-                     stream);
+                     device, stream);
 }
 
 // shadow: limit [R] f32 distance limit; t and mat only.
@@ -485,8 +488,8 @@ extern "C" int NDT_ENTRY(ndt_trace_shadow)(
     const NdtTables* tb, const float* o, const float* v, const float* limit,
     const int* lists, const int* counts, const float* reach,
     const unsigned char* live, int n_list, float* t_out, int* m_out, int R,
-    void* stream) {
+    int device, void* stream) {
   return launch<SHADOW>(tb, o, v, nullptr, limit, lists, counts, reach, live,
                         n_list, nullptr, t_out, m_out, nullptr, nullptr, R,
-                        stream);
+                        device, stream);
 }

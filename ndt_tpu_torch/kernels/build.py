@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,16 +35,18 @@ NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
 DIMS = (3, 4, 5, 6, 7, 8)
 
 _lib = None
+_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # ndt_shade_d<D>'s C signature (csrc/shade.cu)
+# (each ends in R, the device ordinal, the stream)
 SHADE_ARGTYPES = ([_P] * 8 + [ctypes.c_char_p, _I] + [_P] * 3 + [_I] * 4
-                  + [_P] * 12 + [_I, _P])
+                  + [_P] * 12 + [_I, _I, _P])
 # ndt_trace_closest_d<D>'s, and ndt_trace_any_d<D>'s and
 # ndt_trace_shadow_d<D>'s (csrc/trace_closest.cu)
-CLOSEST_ARGTYPES = [_P] * 8 + [_I] + [_P] * 5 + [_I, _P]
-WALK_ARGTYPES = [_P] * 8 + [_I] + [_P] * 2 + [_I, _P]
+CLOSEST_ARGTYPES = [_P] * 8 + [_I] + [_P] * 5 + [_I, _I, _P]
+WALK_ARGTYPES = [_P] * 8 + [_I] + [_P] * 2 + [_I, _I, _P]
 
 
 def find_nvcc() -> str:
@@ -124,13 +127,15 @@ def build() -> tuple[str, list[str]]:
 
 
 def load_library():
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use (under a lock: the host
+    threads of a pixel split may ask for it at once)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build()[0])
-        for d in DIMS:
-            bind(lib, d)
-        _lib = lib
+    with _LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(build()[0])
+            for d in DIMS:
+                bind(lib, d)
+            _lib = lib
     return _lib
 
 

@@ -118,6 +118,11 @@ def proj(v, onto):
     return onto * _where(ok, ab / _where(ok, bb, 1.0), 0.0)[..., None]
 
 
+def proj_unit(v, onto):
+    """Project v onto a known-unit vector (vectNd.h:345-351)."""
+    return onto * dot(v, onto)[..., None]
+
+
 def angle(v1, v2):
     """Angle between vectors; -1 where degenerate (vectNd.c:64-81)."""
     div = l2norm(v1) * l2norm(v2)
@@ -188,6 +193,14 @@ def refract(u, n, index):
         return fma(np_vec, rp, ref_n)
     np_vec = unitize(u - nh * dot(u, nh)[..., None])
     return ref_n + np_vec * rp
+
+
+def interpolate(s, e, t):
+    """Linear interpolation s + t (e - s) (vectNd.c:190-200); in torch f32
+    with the product fused into the add, as XLA computes it."""
+    if _is_torch(s, e, t) and (e - s).dtype == torch.float32:
+        return fma(e - s, t, s)
+    return s + (e - s) * t
 
 
 def orthogonalize(in1, in2):

@@ -29,7 +29,7 @@ import numpy as np
 
 from ndt_tpu_torch.constants import MAX_SAMPLE_DIFF, MAX_SAMPLES
 from ndt_tpu_torch.render.engine import (RenderOptions, frame_generator,
-                                         render_points)
+                                         frame_split, render_points)
 
 history = []
 
@@ -46,7 +46,7 @@ def timed(kind, index, points, fn):
 
 
 def _render_points(scn, cam, gx, gy, amap, opts: RenderOptions, eye,
-                   aperture, gen):
+                   aperture, gen, split):
     """Colours [P, 3] (numpy) and rays traced of samples at fractional
     corner-grid coordinates (gx, gy) under the affine screen map
     x = ax * gx + bx, y = ay * gy + by, amap = (ax, bx, ay, by), the
@@ -55,7 +55,7 @@ def _render_points(scn, cam, gx, gy, amap, opts: RenderOptions, eye,
     dt = np.dtype(opts.dtype)
     c, _, n = render_points(scn, cam, (ax * gx + bx).astype(dt),
                             (ay * gy + by).astype(dt), opts, eye,
-                            None, aperture, gen)
+                            None, aperture, gen, split)
     return c, n
 
 
@@ -69,11 +69,14 @@ def _l1var(a, p1, p2, p3, p4):
 
 def whitted_refine(scn, cam, corners, opts: RenderOptions, aa_diff: int,
                    aa_depth: int, gen=None, eye="center", amap=None,
-                   size=None):
+                   size=None, split=None):
     """corners: [H+1, W+1, 3] pass-1 grid.  Returns ([H, W, 3] image,
     resampled pixel count, extra rays).  ``size=(W, H)`` is the panel's
     size (a stereo eye's panel is smaller than the frame) and ``amap`` its
-    affine corner-grid-to-screen map (default: the mono layout's)."""
+    affine corner-grid-to-screen map (default: the mono layout's).  With
+    opts.devices each level's midpoints are split over the devices
+    (``split``: the frame's parallel.mesh.Split, made here once when
+    None)."""
     W, H = size if size is not None else (opts.width, opts.height)
     if amap is None:
         amap = (1.0 / (W + 1), -0.5, -1.0 / (H + 1), 0.5)
@@ -89,6 +92,7 @@ def whitted_refine(scn, cam, corners, opts: RenderOptions, aa_diff: int,
     if n_flagged == 0 or aa_depth <= 0:
         return np.where(flagged[..., None], avg, out), n_flagged, 0
 
+    split = frame_split(scn, opts, split)
     ys, xs = np.nonzero(flagged)
     pix = ys * W + xs
     quads = dict(pix=pix, x=xs.astype(np.float64), y=ys.astype(np.float64),
@@ -108,7 +112,7 @@ def whitted_refine(scn, cam, corners, opts: RenderOptions, aa_diff: int,
         gy = np.concatenate([quads["y"] + hs, quads["y"], quads["y"] + hs,
                              quads["y"] + hs, quads["y"] + quads["step"]])
         mids, nr = timed("whitted", level + 1, len(gx), lambda: _render_points(
-            scn, cam, gx, gy, amap, opts, eye, True, gen))
+            scn, cam, gx, gy, amap, opts, eye, True, gen, split))
         extra_rays += nr
         p5, p6, p7, p8, p9 = (mids[k * n_q:(k + 1) * n_q] for k in range(5))
         subquads = [
@@ -150,15 +154,17 @@ def whitted_refine(scn, cam, corners, opts: RenderOptions, aa_diff: int,
 
 
 def render_adaptive_samples(scn, cam, x, y, opts: RenderOptions,
-                            eye="center", gen=None):
+                            eye="center", gen=None, split=None):
     """get_pixel_color's convergence loop (ndt.c:474-563), batched: renders
     jittered, aperture-sampled samples of the pixels at screen coords
     ``x, y`` ([P] numpy) until the running mean moves by less than 1/256
     (at least opts.samples, at most MAX_SAMPLES).  Returns (colour [P, 3],
     depth [P] of each pixel's first sample, both in opts.dtype, rays
-    traced)."""
+    traced).  With opts.devices each round's batch is split over the
+    devices (``split`` as in whitted_refine)."""
     if gen is None:
         gen = frame_generator(scn.device, opts)
+    split = frame_split(scn, opts, split)
     P = len(x)
     dt = np.dtype(opts.dtype)
     x = np.asarray(x, dt)
@@ -174,7 +180,7 @@ def render_adaptive_samples(scn, cam, x, y, opts: RenderOptions,
     while len(active_idx):
         c, d, n = timed("adaptive", i, len(active_idx), lambda: render_points(
             scn, cam, x[active_idx], y[active_idx], opts, eye,
-            (opts.width, opts.height), True, gen))
+            (opts.width, opts.height), True, gen, split))
         total_rays += n
         prev_sum = t_clr[active_idx].copy()
         t_clr[active_idx] += c

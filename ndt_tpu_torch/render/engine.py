@@ -40,7 +40,11 @@ anaglyph and hidef layouts, each optionally through Whitted corner-grid
 anti-aliasing (``render/adaptive.py``); ``opts.samples > 1`` runs the
 per-pixel convergence loop (``opts.adaptive``) or a plain average.
 
-Not ported yet (ROADMAP Queue 1): multi-device rendering.
+``RenderOptions.devices`` splits each eye panel's pixels, and each
+refinement level's and sampling round's points, over several devices
+(``parallel/mesh.py``, the JAX package's ``-b r``): each renders its slice
+through the single-device path from a host thread of its own; one device
+(``devices=None``) is the default.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -81,9 +86,10 @@ _FUSED_SHADOW = os.environ.get("NDT_FUSED_SHADOW", "1") != "0"
 
 @dataclasses.dataclass(frozen=True)
 class RenderOptions:
-    """The CLI flags that shape a render (engine.RenderOptions), for
-    frames on one device; ``dtype`` "float32" (the kernels) or "float64"
-    (the dense path: the C's doubles)."""
+    """The CLI flags that shape a render (engine.RenderOptions); ``dtype``
+    "float32" (the kernels) or "float64" (the dense path: the C's
+    doubles); ``devices`` None (one device) or the devices a frame's
+    pixels are split over (parallel/mesh.py make_pixel_mesh)."""
 
     width: int = 1920
     height: int = 1080
@@ -101,6 +107,7 @@ class RenderOptions:
     stack_size: int = 16             # pending refraction branches per ray
     seed: int = 0                    # the frame generator's seed
     dtype: str = "float32"           # the frame's float type
+    devices: Optional[tuple] = None  # -b r / p: the pixel split's devices
 
 
 def torch_dtype(opts: RenderOptions):
@@ -435,25 +442,47 @@ def render_tile(scn: DeviceScene, cam: CameraData, x, y,
 
 def render_points(scn: DeviceScene, cam: CameraData, x, y,
                   opts: RenderOptions, eye="center", jitter=None,
-                  aperture=False, gen=None):
+                  aperture=False, gen=None, split=None):
     """One sample of each screen point ``x, y`` ([P] numpy, cast to the
     opts.dtype) from ``eye``, _TILE rays per bounce-loop batch: (color
     [P, 3], depth [P]) as numpy and the rays traced.  ``jitter`` and
     ``aperture`` as in gen_rays.  The refinement levels and the adaptive
-    rounds render through it."""
+    rounds render through it.  With opts.devices every batch's rays are
+    drawn first, as on one device, then split (``split``: the frame's
+    parallel.mesh.Split, made here when None)."""
     colors, depths, nrays = [], [], 0
     dt = torch_dtype(opts)
+    rays = []
     for t0 in range(0, len(x), _TILE):
         o, v = gen_rays(cam, torch.as_tensor(x[t0:t0 + _TILE], dtype=dt,
                                              device=scn.device),
                         torch.as_tensor(y[t0:t0 + _TILE], dtype=dt,
                                         device=scn.device),
                         eye, jitter, aperture, gen)
+        if opts.devices is not None:
+            rays.append((o, v))
+            continue
         c, d, n = render_rays_chunked(scn, o, v, opts, gen)
         colors.append(c.cpu().numpy())
         depths.append(d.cpu().numpy())
         nrays += int(n)
+    if opts.devices is not None:
+        from ndt_tpu_torch.parallel.mesh import render_rays_sharded
+
+        return render_rays_sharded(
+            frame_split(scn, opts, split), torch.cat([o for o, _ in rays]),
+            torch.cat([v for _, v in rays]), opts)
     return np.concatenate(colors), np.concatenate(depths), nrays
+
+
+def frame_split(scn: DeviceScene, opts: RenderOptions, split=None):
+    """The frame's pixel split over opts.devices (parallel.mesh.Split):
+    ``split`` when given, else a new one; None on one device."""
+    if opts.devices is None or split is not None:
+        return split
+    from ndt_tpu_torch.parallel.mesh import Split
+
+    return Split(scn, opts)
 
 
 # --------------------------------------------------------------------------
@@ -481,14 +510,33 @@ def _blocked_perm(width, height, bw=64, bh=32):
     return key, inv
 
 
+def render_xy(scn: DeviceScene, cam: CameraData, x, y, opts: RenderOptions,
+              eye="center", gen=None, tile=_TILE):
+    """render_tile over the screen coordinates ``x, y`` ([P] numpy) in
+    batches of ``tile``: (color [P, 3], depth [P]) as numpy and the rays
+    traced."""
+    colors, depths, nrays = [], [], 0
+    for t0 in range(0, len(x), tile):
+        c, d, n = render_tile(
+            scn, cam, torch.as_tensor(x[t0:t0 + tile], device=scn.device),
+            torch.as_tensor(y[t0:t0 + tile], device=scn.device), opts, gen,
+            eye)
+        colors.append(c.cpu().numpy())
+        depths.append(d.cpu().numpy())
+        nrays += int(n)
+    return np.concatenate(colors), np.concatenate(depths), nrays
+
+
 def _render_grid(scn: DeviceScene, cam: CameraData, xx, yy,
-                 opts: RenderOptions, eye="center", gen=None):
+                 opts: RenderOptions, eye="center", gen=None, split=None):
     """Render a pixel grid from ``eye`` in screen-blocked order, _TILE rays
     per bounce-loop batch; returns (color [P,3], depth [P]) as numpy and
     the ray count.  The last batch is padded with center-screen rays,
     which are traced and counted like the JAX engine's.  With
     opts.samples > 1 and opts.adaptive the grid runs the per-pixel
-    convergence loop instead (adaptive.render_adaptive_samples)."""
+    convergence loop instead (adaptive.render_adaptive_samples).  With
+    opts.devices the padded grid is split over the devices
+    (parallel.mesh.render_grid_sharded; ``split`` as in render_points)."""
     P = xx.size
     h, w = xx.shape
     perm, inv = _blocked_perm(w, h)
@@ -496,23 +544,22 @@ def _render_grid(scn: DeviceScene, cam: CameraData, xx, yy,
         from ndt_tpu_torch.render.adaptive import render_adaptive_samples
 
         c, d, n = render_adaptive_samples(
-            scn, cam, xx.ravel()[perm], yy.ravel()[perm], opts, eye, gen)
+            scn, cam, xx.ravel()[perm], yy.ravel()[perm], opts, eye, gen,
+            split)
         return c[inv], d[inv], n
     tile = min(_TILE, max(1, P))
     pad = (-P) % tile
     xf = np.concatenate([xx.ravel()[perm], np.zeros(pad, xx.dtype)])
     yf = np.concatenate([yy.ravel()[perm], np.zeros(pad, yy.dtype)])
-    colors, depths, nrays = [], [], 0
-    for t0 in range(0, P + pad, tile):
-        x = torch.as_tensor(xf[t0:t0 + tile], device=scn.device)
-        y = torch.as_tensor(yf[t0:t0 + tile], device=scn.device)
-        c, d, n = render_tile(scn, cam, x, y, opts, gen, eye)
-        colors.append(c.cpu().numpy())
-        depths.append(d.cpu().numpy())
-        nrays += int(n)
-    color = np.concatenate(colors)[:P][inv]
-    depth = np.concatenate(depths)[:P][inv]
-    return color, depth, nrays
+    if opts.devices is not None:
+        from ndt_tpu_torch.parallel.mesh import render_grid_sharded
+
+        color, depth, nrays = render_grid_sharded(
+            frame_split(scn, opts, split), cam, xf, yf, opts, eye, gen)
+    else:
+        color, depth, nrays = render_xy(scn, cam, xf, yf, opts, eye, gen,
+                                        tile)
+    return color[:P][inv], depth[:P][inv], nrays
 
 
 def frame_camera(scene_host, opts: RenderOptions, device):
@@ -583,7 +630,11 @@ def render_frame(scene_host, opts: RenderOptions, device="cuda"):
     depth [H, W] or None, rays traced).  Every layout renders each eye's panel on its own grid, or
     with opts.whitted through the corner grid and the refinement of
     adaptive.whitted_refine under the panel's affine map (the C's -w
-    resamples the frame whatever the stereo mode, ndt.c:1039-1103)."""
+    resamples the frame whatever the stereo mode, ndt.c:1039-1103).  With
+    opts.devices every panel, level and round is split over those devices
+    (one parallel.mesh.Split for the frame); the scene, the camera and
+    the frame's generator, which draws the jittered rays, stay on
+    ``device``."""
     from ndt_tpu_torch.render import adaptive
 
     device = render_device(device)
@@ -591,6 +642,7 @@ def render_frame(scene_host, opts: RenderOptions, device="cuda"):
     dt = np.dtype(opts.dtype).type
     scn = to_device(compile_scene(scene_host, dt), device)
     gen = frame_generator(device, opts)
+    split = frame_split(scn, opts)
     adaptive.history.clear()
     W, H = opts.width, opts.height
     rays = 0
@@ -605,15 +657,15 @@ def render_frame(scene_host, opts: RenderOptions, device="cuda"):
                                  (ay * gy + by).astype(dt))
             c, d, n = adaptive.timed(
                 "corners", 0, xg.size,
-                lambda: _render_grid(scn, cam, xg, yg, opts, eye, gen))
+                lambda: _render_grid(scn, cam, xg, yg, opts, eye, gen, split))
             c, _, extra = adaptive.whitted_refine(
                 scn, cam, c.reshape(h + 1, w + 1, 3), opts, opts.aa_diff,
-                opts.aa_depth, gen, eye, amap, (w, h))
+                opts.aa_depth, gen, eye, amap, (w, h), split)
             d = d.reshape(h + 1, w + 1)[:h, :w]
             n += extra
         else:
             xg, yg = panel_grid(W, H, opts.stereo, eye, rows, cols, dt)
-            c, d, n = _render_grid(scn, cam, xg, yg, opts, eye, gen)
+            c, d, n = _render_grid(scn, cam, xg, yg, opts, eye, gen, split)
             c, d = c.reshape(h, w, 3), d.reshape(h, w)
         eyes[eye] = (rows, cols, c, d)
         rays += n

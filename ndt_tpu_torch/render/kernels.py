@@ -49,6 +49,7 @@ r // RT, and every ray of a tile walks that tile's candidate list.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -91,11 +92,20 @@ launch_counts = {k: 0 for k in (
     "trace_facets", "trace_early_exit", "shade_carry", "shade_escalate",
     "shade_local", "shade_point", "shade_spot", "shade_area",
     "shade_facets")}
+# the frames of a pixel split launch from one host thread per device
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+    with _COUNT_LOCK:
+        for k in launch_counts:
+            launch_counts[k] = 0
+
+
+def _count(*names):
+    with _COUNT_LOCK:
+        for k in names:
+            launch_counts[k] += 1
 
 
 def _families(scn: DeviceScene):
@@ -828,14 +838,20 @@ def trace_closest(scn: DeviceScene, o, v, aux, lists, counts, reach=None,
     tables = _c_tables(scn, scratch)
     err = fn(ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists),
              _p(counts), _p(reach), _p(live), lists.shape[1], _p(scn.props),
-             _p(t), _p(m), _p(nrm), _p(props), R, _stream())
+             _p(t), _p(m), _p(nrm), _p(props), R, *_target(o))
     _raise_on(err, "trace_closest")
-    launch_counts["trace_gated" if is_gated(scn) else "trace_closest"] += 1
-    if has_facets(scn):
-        launch_counts["trace_facets"] += 1
-    if reach is not None:
-        launch_counts["trace_early_exit"] += 1
+    _count_trace(scn, "trace_gated" if is_gated(scn) else "trace_closest",
+                 reach)
     return t, m, nrm, props
+
+
+def _count_trace(scn, name, reach):
+    names = [name]
+    if has_facets(scn):
+        names.append("trace_facets")
+    if reach is not None:
+        names.append("trace_early_exit")
+    _count(*names)
 
 
 def trace_any_ref(scn: DeviceScene, o, v, aux, lists, counts, reach=None,
@@ -891,13 +907,9 @@ def _launch_walk(name, scn, o, v, aux, lists, counts, reach, live):
     tables = _c_tables(scn, scratch)
     err = fn(ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists),
              _p(counts), _p(reach), _p(live), lists.shape[1], _p(t), _p(m),
-             R, _stream())
+             R, *_target(o))
     _raise_on(err, name)
-    launch_counts[name] += 1
-    if has_facets(scn):
-        launch_counts["trace_facets"] += 1
-    if reach is not None:
-        launch_counts["trace_early_exit"] += 1
+    _count_trace(scn, name, reach)
     return t, m
 
 
@@ -1241,15 +1253,12 @@ def shade_local(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
 
 
 def _count_shade(scn, mode_name, kinds):
-    launch_counts[mode_name] += 1
-    if "p" in kinds:
-        launch_counts["shade_point"] += 1
-    if "s" in kinds:
-        launch_counts["shade_spot"] += 1
-    if "a" in kinds:
-        launch_counts["shade_area"] += 1
+    names = [mode_name]
+    names += [f"shade_{light}" for k, light in (
+        ("p", "point"), ("s", "spot"), ("a", "area")) if k in kinds]
     if has_facets(scn):
-        launch_counts["shade_facets"] += 1
+        names.append("shade_facets")
+    _count(*names)
 
 
 # shade kernel modes (csrc/shade.cu)
@@ -1270,7 +1279,7 @@ def _shade_args(scn, o, v, t, mat, nrm, props, lvec, culls, kinds, area,
         _p(props), _p(lvec), "".join(kinds).encode(), len(kinds), _p(area),
         _p(lists), _p(counts), lists.shape[2], int(bool(specular)),
         int(SPECULAR_POWER), mode, *(_p(x) for x in io), o.shape[0],
-        _stream())
+        *_target(o))
 
 
 def _launch_shade(fn, *a):
@@ -1303,8 +1312,13 @@ def _p(x):
     return ctypes.c_void_p(None if x is None else x.data_ptr())
 
 
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _target(x):
+    """(device ordinal, stream) of a launch on ``x``'s card: its index and
+    the current stream of that device in this thread.  The entry points
+    make the ordinal their device (cudaSetDevice) and refuse rays that lie
+    on another one."""
+    return x.device.index, ctypes.c_void_p(
+        torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def _c_tables(scn: DeviceScene, scratch=None) -> NdtTables:
@@ -1328,4 +1342,5 @@ def _raise_on(err, name):
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
                            "(-1: no kernel instance for this A; -2: a "
-                           "light kind the kernel does not take)")
+                           "light kind the kernel does not take; -3: the "
+                           "rays do not lie on the launch's device)")

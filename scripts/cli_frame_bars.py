@@ -7,7 +7,9 @@ ADAPTIVE_BAR), with the port's CPU twins:
 Renders through ndt_tpu_torch.render.engine.render_frame on the CPU, each
 against the same scene's plain one-sample frame at the same size:
   * the built-in test scene 4-D frame 0 at 40x30 with -w -q med (Whitted,
-    aa_diff 1, aa_depth 2, depth 20: bench.py's builtin_qmed settings);
+    aa_diff 1, aa_depth 2, depth 20: bench.py's builtin_qmed settings),
+    and the same refinement at optic depth 6 (-w -a 1,2 -l 6, the run
+    chip_smoke.py makes of it);
   * balls 4-D frame 0 with -n 4 (adaptive sampling) at 96x54, 192x108 and
     384x216.
 Prints, per frame, the mean |difference| and the RMSE of the 8-bit pixels
@@ -36,6 +38,8 @@ from ndt_tpu_torch.scenes import get_scene  # noqa: E402
 # key, scene, total frames, sizes, the sampling options
 CASES = (("test_4d_qmed", "test", 300, ((40, 30),),
           dict(whitted=True, aa_diff=1, aa_depth=2, max_optic_depth=20)),
+         ("test_4d_qmed_l6", "test", 300, ((40, 30),),
+          dict(whitted=True, aa_diff=1, aa_depth=2, max_optic_depth=6)),
          ("balls_4d_n4", "balls", 1500, ((96, 54), (192, 108), (384, 216)),
           dict(samples=4)))
 

@@ -374,16 +374,21 @@ def test_cli_stereo_and_radial_dirs(tmp_path, monkeypatch, flags, subdir,
 
 def test_cli_runs_on_the_card_unless_told(tmp_path, monkeypatch):
     """With no device named, main asks for the card: without one it
-    raises and writes nothing.  The multi-GPU flags raise."""
+    raises and writes nothing, with the multi-GPU flags too (-b splits
+    over every visible card).  A multi-process flag without the rest of
+    the rendezvous raises, naming what is missing."""
     from ndt_tpu_torch import cli
 
     monkeypatch.chdir(tmp_path)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="cuda"):
-            cli.main(["-s", "empty", "-r", "16x12", "-f", "0:0"])
+        for flags in ([], ["-b", "r"], ["-b", "f"]):
+            with pytest.raises(RuntimeError, match="cuda|CUDA"):
+                cli.main(["-s", "empty", "-r", "16x12", "-f", "0:0"] + flags)
         assert not (tmp_path / "images").exists()
-    for flags in (["-b", "r"], ["--multihost"], ["--num-processes", "2"]):
-        with pytest.raises(NotImplementedError, match="item 10"):
+    for var in ("NDT_COORDINATOR", "NDT_NUM_PROCESSES", "NDT_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    for flags in (["--multihost"], ["--num-processes", "2"]):
+        with pytest.raises(ValueError, match="NDT_COORDINATOR"):
             cli.main(["-s", "empty", "-r", "16x12"] + flags, device="cpu")
 
 

@@ -94,8 +94,9 @@ def test_port_renders_without_jax():
     area scene on the fused and the unfused branch), renders the last in
     the side layout with Whitted AA, in the anaglyph one with adaptive
     sampling and over / under with plain multisampling, runs the command
-    line (side by side, a PANO camera, depth maps, Whitted AA) and
-    render_animation, imports the YAML modules, compiles random "600"
+    line (side by side, a PANO camera, depth maps, Whitted AA; then -b r,
+    a frame split over the CPU) and render_animation, imports the YAML
+    modules and the multi-device package, compiles random "600"
     (the budgeted kd build; its CPU twins take minutes a frame), and has
     loaded no module of the JAX package (``ndt_tpu`` or ``ndt_tpu.*``),
     nor jax or flax."""
@@ -166,6 +167,9 @@ def test_port_renders_without_jax():
         "assert cli.main(['-s', 'balls', '-d', '4', '-r', '16x12', '-f', "
         "'0:1', '-m', 's', '-v', 'c', '-z', '-w', '-a', '8,1'], "
         "device='cpu') == 0\n"
+        "import ndt_tpu_torch.parallel\n"
+        "assert cli.main(['-s', 'balls', '-d', '4', '-r', '16x12', '-f', "
+        "'0:0', '-b', 'r'], device='cpu') == 0\n"
         "res, _, _ = animate.render_animation(get_scene('empty'), 4, 0, 1, "
         "2, RenderOptions(width=16, height=12), 'anim', device='cpu')\n"
         "assert [image_io.read_png_rgb(r.path).shape for r in res] == "
