@@ -7,7 +7,7 @@
 parent commit, whose csrc/shade.cu and csrc/trace_closest.cu are built too
 (D = 3, 4, 5, 6) and timed beside this one's on every timed shade and trace
 batch and every launch of the census, in turns (baseline, this, this,
-baseline); its trace results are held to this one's bits.
+baseline); its trace and shade results are held to this one's bits.
 
 Phases (each prints its own lines and its seconds; any failure exits
 nonzero with no "ok" line):
@@ -105,10 +105,17 @@ nonzero with no "ok" line):
      phase's frame its warm-up) and random "150" (trace_shadow with the
      capped early exit); and the area scene 640x480 on the fused branch
      (shade_area): s/frame, rays/frame, Mrays/s, the probe's taint share,
-     the tainted lanes and the stack iterations; for anim6d and test 4-D
-     also the shade launches by size R, and the first one-tile launch of
-     the stack loop's tail re-run against its twin and timed; then one
-     more frame of
+     the tainted lanes and the stack iterations; for random600 also the
+     shade launches by size R and the shade census (anim6d's and test
+     4-D's: tools/shade_census.py, whose frames of thousands of launches
+     would not fit the call):
+     every shade launch of the first timed frame re-run alone, each with
+     its mode, R, lanes, needed pairs by light, list lengths, how the
+     kernel walks it (groups of G threads or the block path), its device
+     time beside each baseline's, its bound, and every output equal to
+     the twin's and each baseline's to the bit, then the frame's summed
+     shade time by mode and over the launches walked by groups
+     (kernels.shade_grouped); then one more frame of
      test 4-D and random150 (fused) and of the three new paths under
      torch.profiler (tools/profile_frame.py): the device's busy share
      (test 4-D's profiled frames, fused and unfused, at the optic depth
@@ -116,8 +123,8 @@ nonzero with no "ok" line):
      then the bench rows of the rest of the registry at 640x480, fused,
      each with its busy share: hypercube f10, hypercube 'walls' f10,
      cluster5d f0 and random "600" f0 (one timed frame), with random600's
-     compile_scene host time (median of 3) and the frame's peak device
-     memory;
+     compile_scene host time (median of 3) and the peak device memory of
+     an untimed frame rendered before the timed one;
   A. the cameras, stereo layouts and Whitted AA on the card against the C
      goldens, each within the JAX package's own f32 RMSE + 2e-4: the
      built-in test scene 4-D f0 at 160x120 through the VR and PANO cameras
@@ -404,25 +411,30 @@ def cuda_ms(fn, reps, prefill=False):
 
 def solve_ops(sd):
     """f32 operations of one candidate solve per family, counted from
-    csrc/families.cuh (an FMA counts 2), and of a winner's normal."""
+    csrc/families.cuh (an FMA counts 2), without the kd gate (gate_ops),
+    and of a winner's normal."""
     D, A = sd.dim, sd.a_quad
     NP = D * (D - 1) // 2
     dots = 2 * D - 1                        # dotc over D
-
-    def gate(B):
-        return B * (4 * D + 4)
-
     sph = D + dots + 2 * D + 3 * NP + (2 * NP - 1) + 2 + dots + 3
     pln = D + 2 * dots + 1 + 3 * D + dots
     quad = (D + 2 * A * dots + 2 * D * 2 * A + 2 * dots + 1 + 2 * A + 2 * D
             + D * 2 * A + 2 * D + 3 * NP + (2 * NP - 1) + 3 + 1 + 6 + 2
-            + 6 * A + 5 + gate(sd.b_gate))
+            + 6 * A + 5)
     fct = (4 * dots + 2 + 9 * D + 3 * dots + 1 + 8 + 3 * NP + (2 * NP - 1)
-           + 2 + 3 * dots + 3 * (5 * dots + 14) + gate(sd.b_fct))
-    hf = (2 * (D - 1) + 4 * dots + 10 + 2 + 6 + 14 + 10 + 5 * dots + 8
-          + gate(sd.b_hf))
+           + 2 + 3 * dots + 3 * (5 * dots + 14))
+    hf = (2 * (D - 1) + 4 * dots + 10 + 2 + 6 + 14 + 10 + 5 * dots + 8)
     return {"sph": sph, "pln": pln, "quad": quad, "fct": fct, "hf": hf,
             "normal": 2 * D + 1}
+
+
+def gate_ops(sd):
+    """f32 operations of a gated family's kd gate (B boxes of D dimensions,
+    families.cuh gate_pierced), which a solve runs only where it hits
+    before the gate: by family, 0 for a family without gates."""
+    box = 4 * sd.dim + 4
+    return {"sph": 0, "pln": 0, "quad": sd.b_gate * box,
+            "fct": sd.b_fct * box, "hf": sd.b_hf * box}
 
 
 def _fam_ops(sd):
@@ -431,23 +443,77 @@ def _fam_ops(sd):
     return [ops[k] for k in ("sph", "pln", "quad", "fct", "hf")]
 
 
-def walk_ops(sd, lists, counts, lanes=None):
+def _chunk_rays(K, x, r0, r1, nt):
+    """A ray component ([R] or 0-d) of the rays r0:r1, [nt, RT, 1]."""
+    return x if x.dim() == 0 else x[r0:r1].reshape(nt, K.RT, 1)
+
+
+def gated_ops(sd, lists, counts, o, v, lanes=None, reach=None, t=None):
+    """Gate operations of a walk (gate_ops): one gate for each (lane,
+    candidate of a gated family) whose solve hits before the gate, over
+    every lane of a listed tile or those of ``lanes`` [R] bool; with
+    ``reach`` and the lanes' final ``t`` [R], only the candidates whose
+    reach is within t (the exit walk's).  o, v: D ray components, each [R]
+    or 0-d."""
+    import dataclasses as dc
+
+    import torch
+
+    from ndt_tpu_torch.constants import BIG
+    from ndt_tpu_torch.render import kernels as K
+
+    gops = gate_ops(sd)
+    if not any(gops.values()):
+        return 0.0
+    flat = dc.replace(sd, b_gate=0, b_fct=0, b_hf=0)   # the solves alone
+    total = 0.0
+    R = lists.shape[0] * K.RT
+    for r0, r1, tiles in K._ray_chunks(R):
+        nt = len(tiles)
+        tiles = tiles.to(lists.device)
+        oc = [_chunk_rays(K, x, r0, r1, nt) for x in o]
+        vc = [_chunk_rays(K, x, r0, r1, nt) for x in v]
+        lane = (torch.ones((nt, K.RT, 1), dtype=torch.bool,
+                           device=lists.device) if lanes is None
+                else lanes[r0:r1].reshape(nt, K.RT, 1))
+        step = K._K_CHUNK * K._REF_CHUNK // (r1 - r0)
+        for fam, col, off, _ in K._families(sd):
+            if not gops[fam]:
+                continue
+            k_max = int(counts[tiles, col].max())
+            for k0 in range(0, k_max, step):
+                k1 = min(k_max, k0 + step)
+                rows, valid = K._tile_candidates(lists, counts, tiles, col,
+                                                 off, k0, k1)
+                pre, _ = K._eval(flat, fam, rows, oc, vc, False)
+                hit = valid & (pre < BIG) & lane
+                if reach is not None:
+                    hit &= (reach[tiles, off + k0:off + k1][:, None, :]
+                            <= t[r0:r1].reshape(nt, K.RT, 1))
+                total += float(hit.sum()) * gops[fam]
+    return total
+
+
+def walk_ops(sd, lists, counts, o, v, lanes=None):
     """Operations of a full walk of every tile's list, summed over the
     tile's lanes: all RT of them (the trace kernel runs every lane of a
     listed tile), or those of ``lanes`` [R] bool (the shade kernel's
-    pairs that need the walk)."""
+    pairs that need the walk); the gates of the solves that hit before
+    them (gated_ops) on the rays (o, v) (D components each)."""
     from ndt_tpu_torch.render.kernels import RT
 
     c = counts.double()
     n = RT if lanes is None else lanes.reshape(-1, RT).double().sum(1)
-    return float((n * sum(c[:, col] * op
-                          for col, op in enumerate(_fam_ops(sd)))).sum())
+    return (float((n * sum(c[:, col] * op
+                           for col, op in enumerate(_fam_ops(sd)))).sum())
+            + gated_ops(sd, lists, counts, o, v, lanes))
 
 
-def exit_walk_ops(sd, counts, reach, t, live):
+def exit_walk_ops(sd, lists, counts, reach, t, live, o, v):
     """Operations of the early-exit walk that every lane needs: the
     candidates whose reach is within the lane's final t (the walk solves
-    each of them whatever the order), summed over the live lanes."""
+    each of them whatever the order), summed over the live lanes, with
+    the gates of those that hit before them (gated_ops)."""
     from ndt_tpu_torch.render.kernels import RT, _families
 
     ops = _fam_ops(sd)
@@ -462,29 +528,31 @@ def exit_walk_ops(sd, counts, reach, t, live):
                 continue
             need = (r[None, :] <= tt[tile][:, None]) & lv[tile][:, None]
             total += float(need.sum()) * ops[col]
-    return total
+    return total + gated_ops(sd, lists, counts, o, v, live, reach, t)
 
 
 def anyhit_ops(sd, lists, counts, so, sv, lanes):
     """Operations of the directional shadow walks of the ``lanes`` [R]
     bool that need one, each up to its first hit (the kernel's any-hit
     stop): per ray the cumulative solve cost at the first hitting
-    candidate, or the whole list."""
+    candidate, or the whole list; a gate (gate_ops) only where the solve
+    hits before it."""
+    import dataclasses as dc
+
     import torch
 
     from ndt_tpu_torch.constants import BIG
     from ndt_tpu_torch.render import kernels as K
 
-    ops = solve_ops(sd)
+    ops, gops = solve_ops(sd), gate_ops(sd)
+    flat = dc.replace(sd, b_gate=0, b_fct=0, b_hf=0)   # the solves alone
     total = 0.0
     R = lists.shape[0] * K.RT
     for r0, r1, tiles in K._ray_chunks(R):
         nt = len(tiles)
         tiles = tiles.to(lists.device)
-        oc = [x if x.dim() == 0 else x[r0:r1].reshape(nt, K.RT, 1)
-              for x in so]
-        vc = [x if x.dim() == 0 else x[r0:r1].reshape(nt, K.RT, 1)
-              for x in sv]
+        oc = [_chunk_rays(K, x, r0, r1, nt) for x in so]
+        vc = [_chunk_rays(K, x, r0, r1, nt) for x in sv]
         costs, hits = [], []
         for fam, col, off, _ in K._families(sd):
             k_max = int(counts[tiles, col].max())
@@ -493,7 +561,11 @@ def anyhit_ops(sd, lists, counts, so, sv, lanes):
             rows, valid = K._tile_candidates(lists, counts, tiles, col, off,
                                              0, k_max)
             t, _ = K._eval(sd, fam, rows, oc, vc, False)
-            costs.append((valid * ops[fam]).expand(t.shape).double())
+            cost = valid * ops[fam]
+            if gops[fam]:
+                pre, _ = K._eval(flat, fam, rows, oc, vc, False)
+                cost = cost + (valid & (pre < BIG)) * gops[fam]
+            costs.append(cost.expand(t.shape).double())
             hits.append(valid & (t < BIG * 0.5))
         if not costs:
             continue
@@ -506,32 +578,32 @@ def anyhit_ops(sd, lists, counts, so, sv, lanes):
     return total
 
 
-def shade_ops(sd, kinds, culls, o, v, t, lvec, mode, need):
+def shade_ops(sd, kinds, culls, o, v, t, lvec, mode, need, area=None):
     """Operations of one shade launch: the shadow walks of the (ray,
     light) pairs that need one (``need`` [n_lights, R] bool,
     kernels.shade_walks_needed): the first-rank pass and the full list
     for 'p' / 's' / 'a', the list to the first hit for 'd'; plus the
     per-ray shading, specular and, with carry, the bounce step."""
-    from ndt_tpu_torch.constants import EPSILON
-    from ndt_tpu_torch.render.kernels import _gid_family, fma, light_fields
+    from ndt_tpu_torch.render.kernels import (_gid_family, _light_terms,
+                                              fma, light_fields)
 
     R, D = o.shape
     ops = solve_ops(sd)
     rank_pass = sum(ops[_gid_family(sd, g)[0]] for g, _ in sd.inf_gids)
     per_ray = 2 * (2 * D - 1) + 4
     walks = 0.0
-    for li, (kind, _, _, geo) in enumerate(light_fields(kinds, D)[0]):
+    p = [fma(t, v[:, d], o[:, d]) for d in range(D)]
+    # each light's shadow rays (so, sv); the normal plays no part in them
+    rays = [x[-2:] for x in _light_terms(lvec, kinds, p, [0.0] * D, area)]
+    for li, (kind, _, _, _) in enumerate(light_fields(kinds, D)[0]):
         lists, counts = culls[li]
+        so, sv = rays[li]
         per_ray += 6 * D + 20 + 8 * D + 20          # shading + specular
         if kind == "d":
-            u = lvec[geo:geo + D]
-            p = [fma(t, v[:, d], o[:, d]) for d in range(D)]
-            so = [fma(-u[d], EPSILON, p[d]) for d in range(D)]
-            sv = [0.0 - u[d] for d in range(D)]
             walks += anyhit_ops(sd, lists, counts, so, sv, need[li])
             per_ray += 2 * D
         else:
-            walks += (walk_ops(sd, lists, counts, need[li])
+            walks += (walk_ops(sd, lists, counts, so, sv, need[li])
                       + float(need[li].sum()) * rank_pass)
             per_ray += 9 * D
             if kind == "s":
@@ -612,10 +684,14 @@ TRACE_INSTANCES = ((4, 1, 0), (4, 1, 1), (6, 2, 0), (4, 2, 0), (4, 2, 2),
 
 def print_registers(lines, who):
     """Registers, spills, shared memory and resident blocks per SM of every
-    shade_kernel instance and of the TRACE_INSTANCES of each trace kernel
-    (trace_kernel and, where the checkout has it, trace_group_kernel)."""
+    shade_kernel instance (<D, A, PRE> where the checkout has the grouped
+    walks), of the D = 4, 5 instances of walk_pairs (where it has them) and
+    of the TRACE_INSTANCES of each trace kernel (trace_kernel and, where
+    the checkout has it, trace_group_kernel)."""
     rows = [("shade_kernel", args, stats) for args, stats in sorted(
         kernel_instances(lines, "shade_kernel").items())]
+    rows += [("walk_pairs", args, stats) for args, stats in sorted(
+        kernel_instances(lines, "walk_pairs").items()) if args[0] in (4, 5)]
     for kern in ("trace_kernel", "trace_group_kernel"):
         inst = kernel_instances(lines, kern)
         rows += [(kern, args, inst[args]) for args in TRACE_INSTANCES
@@ -689,6 +765,26 @@ class Baseline:
             yield
         finally:
             K._entry = orig
+
+
+class ShadePath:
+    """This checkout's kernels with the shade wrapper's choice of path
+    forced, timed beside its own choice as a Baseline is: every launch of
+    at most FILL / 2 rays walked by groups (``grouped``), or none
+    (``block``: one thread a pair in the ray's block)."""
+
+    def __init__(self, grouped):
+        self.grouped = grouped
+        self.name = "grouped" if grouped else "block"
+
+    @contextlib.contextmanager
+    def active(self, K):
+        orig = K.shade_grouped
+        K.shade_grouped = lambda scn, R: self.grouped and 2 * R <= K.FILL
+        try:
+            yield
+        finally:
+            K.shade_grouped = orig
 
 
 def time_turns(K, fn, baselines, reps=20):
@@ -913,7 +1009,8 @@ def shade_bound(sd, base, carry, mode, kw, need):
               + sum(call_bytes(*c) for c in culls)
               + table_bytes(sd) + outs
               + (0 if mode == "local" else call_bytes(*carry)))
-    ops = shade_ops(sd, kinds, culls, o, v, t, lvec, mode, need)
+    ops = shade_ops(sd, kinds, culls, o, v, t, lvec, mode, need,
+                    kw.get("area"))
     return (*bound(nbytes, ops), nbytes, ops)
 
 
@@ -936,12 +1033,18 @@ def shade_launch(K, mode, base, carry, kw):
               torch.empty_like(color),
               torch.empty(R, dtype=torch.bool, device=o.device),
               torch.empty(R, dtype=torch.bool, device=o.device), None)
-    keep, args = K._shade_args(scn, o, v, t, mat, nrm, props, lvec, culls,
-                               kinds, kw.get("area"), specular, code, io)
-    fn = K._entry(o, "ndt_shade", scn.dim)
+    built = {}
 
-    def launch(keep=keep, io=io):
-        return fn(*args)
+    def launch(io=io):
+        # the entry and the path are looked up at each call: a Baseline
+        # swaps the entry, a ShadePath the wrapper's choice of path (the
+        # arguments of each path are built at its first, untimed, call)
+        grouped = K.shade_grouped(scn, R)
+        if grouped not in built:
+            built[grouped] = K._shade_args(
+                scn, o, v, t, mat, nrm, props, lvec, culls, kinds,
+                kw.get("area"), specular, code, io)
+        return K._entry(o, "ndt_shade", scn.dim)(*built[grouped][1])
     return launch
 
 
@@ -1081,8 +1184,12 @@ def check_path(torch, K, sd, o, v, live, variants, results, label,
                         *args), 3)
                     nbytes = (call_bytes(*args[1:]) + table_bytes(sd)
                               + call_bytes(*got))
-                    ops = (exit_walk_ops(sd, args[5], args[6], t, live)
-                           if exit_ else walk_ops(sd, args[4], args[5]))
+                    oc = [o[:, d] for d in range(D)]
+                    vc = [v[:, d] for d in range(D)]
+                    ops = (exit_walk_ops(sd, args[4], args[5], args[6], t,
+                                         live, oc, vc)
+                           if exit_ else walk_ops(sd, args[4], args[5], oc,
+                                                  vc))
                     ops += float(hit.sum()) * (solve_ops(sd)["sph"]
                                                + solve_ops(sd)["normal"])
                     r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
@@ -1270,9 +1377,11 @@ def check_walks(torch, K, scn, W, H, results, label, name, limit=None,
                   + table_bytes(sd) + call_bytes(*got))
         lim = t if name == "trace_any" else torch.minimum(
             t, fma(aux, 1.001, 0.01))
-        ops = (exit_walk_ops(sd, counts, reach, torch.where(
-            t < BIG * 0.5, lim, BIG), lv) if exit_
-            else walk_ops(sd, lists, counts))
+        oc = [o[:, d] for d in range(o.shape[1])]
+        vc = [v[:, d] for d in range(o.shape[1])]
+        ops = (exit_walk_ops(sd, lists, counts, reach, torch.where(
+            t < BIG * 0.5, lim, BIG), lv, oc, vc) if exit_
+            else walk_ops(sd, lists, counts, oc, vc))
         if name == "trace_shadow":         # the rank pass, every lane
             fops = solve_ops(sd)
             ops += o.shape[0] * sum(fops[K._gid_family(sd, g)[0]]
@@ -1377,8 +1486,8 @@ def time_random600_shade(torch, K, sd, o, v, live, label):
     escalating chain) on its 307200 primary rays and on their first
     bounce, each the wrapper's call and the launch alone, with its bound
     and the share of (lane, light) pairs that need a walk, and on the
-    primary rays the twin's time.  Phase 5 times a stack-tail launch of
-    the frame (time_tail) and counts its launches."""
+    primary rays the twin's time.  Phase 5's shade census times every
+    shade launch of the frame."""
     aux = torch.full((o.shape[0],), -1, dtype=torch.int32, device="cuda")
     for stage in ("primary", "first bounce"):
         got = K.trace_closest(*trace_args(K, sd, o, v, live, aux))
@@ -1949,25 +2058,21 @@ def engine_counters(engine):
 
 @contextlib.contextmanager
 def shade_launch_sizes():
-    """Record (mode, R) of every shade launch of the fused path in the
-    block (the wrappers trace_fused and trace_fused_step call), and keep
-    the arguments of the first one-tile local launch (where the stack
-    loop's tail begins) as ("tail", args, kwargs)."""
+    """Record (mode, R, args, kwargs) of every shade launch of the fused
+    path in the block (the wrappers trace_fused and trace_fused_step
+    call), for the shade census."""
     from ndt_tpu_torch.render import trace as T
-    from ndt_tpu_torch.render.kernels import RT
 
     sizes = []
     orig = {n: getattr(T, n) for n in ("shade_local", "shade_carry")}
 
     def local(*a, **k):
-        sizes.append(("local", a[1].shape[0]))
-        if a[1].shape[0] == RT and not any(x[0] == "tail" for x in sizes):
-            sizes.append(("tail", a, k))
+        sizes.append(("local", a[1].shape[0], a, k))
         return orig["shade_local"](*a, **k)
 
     def carry(*a, **k):
         sizes.append(("escalate" if k.get("escalate") else "carry",
-                      a[1].shape[0]))
+                      a[1].shape[0], a, k))
         return orig["shade_carry"](*a, **k)
 
     T.shade_local, T.shade_carry = local, carry
@@ -1982,9 +2087,8 @@ def print_launch_sizes(label, sizes):
     R (rays, a multiple of the 4096-ray tile)."""
     from ndt_tpu_torch.render.kernels import RT
 
-    sizes = [x for x in sizes if x[0] != "tail"]
-    modes = collections.Counter(m for m, _ in sizes)
-    hist = sorted(collections.Counter(r for _, r in sizes).items())
+    modes = collections.Counter(x[0] for x in sizes)
+    hist = sorted(collections.Counter(x[1] for x in sizes).items())
     print(f"[frame] {label} shade launches: {len(sizes)} ({dict(modes)}); "
           f"launch-size histogram R: count "
           f"{ {r: n for r, n in hist} }; in tiles of {RT}: 1 tile "
@@ -1999,8 +2103,9 @@ def timed_frames(torch, K, scn, opts, names, results, label, card,
     ``reps`` frames; the counters are set to 0 right before the first
     timed frame and read right after it.  ``names``: the kernels whose
     launches this path records; ``also``: kernels it must launch too;
-    ``sizes``: print the first timed frame's shade launch sizes and time
-    its last one-tile shade launch (beside ``baseline``'s kernels)."""
+    ``sizes``: print the first timed frame's shade launch sizes and run
+    the shade census over its shade launches (beside ``baseline``'s
+    kernels)."""
     from ndt_tpu_torch.render import engine
 
     if warm:
@@ -2041,30 +2146,102 @@ def timed_frames(torch, K, scn, opts, names, results, label, card,
           f"timed frame{extra}")
     if sizes:
         print_launch_sizes(label, shade_sizes)
-        time_tail(K, label, shade_sizes, baseline)
+        ok &= shade_census(torch, K, f"{label} {opts.width}x{opts.height}",
+                           shade_sizes, baseline)
     return ok
 
 
-def time_tail(K, label, shade_sizes, baseline):
-    """The frame's first one-tile local shade launch (where the stack
-    loop's tail begins), re-run: checked against its twin to the bit and
-    timed."""
-    tail = [x for x in shade_sizes if x[0] == "tail"]
-    if not tail:
-        return
-    _, a, k = tail[-1]
-    eq = exact_diff(K.shade_local(*a, **k), K.shade_local_ref(*a, **k))
-    times = time_kernel(K, "local", a, None, k, baseline)
-    need, share = walk_need(K, a, "local", None, k)
-    bms, by, nbytes, ops = shade_bound(a[0], a, None, "local", k, need)
-    print(f"[frame] {label} stack-tail shade_local launch at {a[1].shape[0]} "
-          f"rays: every output max |diff| {eq:.3e} against the twin; "
-          f"{timing_line(times)}, pairs needing a walk {share:.4f}, bound "
-          f"{bms:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} "
-          f"GFLOP)")
-    if eq:
-        raise RuntimeError(f"{label}: the stack-tail launch differs from "
-                           "its twin")
+def shade_census(torch, K, label, launches, baselines=()):
+    """Every shade launch of a frame (shade_launch_sizes), re-run alone:
+    per launch its mode, R, the lanes it shades (live lanes in carry and
+    escalate, hit lanes in local mode), the (ray, light) pairs that need a
+    walk by light (kernels.shade_walks_needed), each light's tile-list
+    length (counts summed over the families: mean and largest over the
+    tiles that hold its pairs), how the kernel walks them (by groups of G
+    threads, kernels.shade_walk_group, or one thread a pair in the ray's
+    block), its device time alone beside each baseline's (time_launches),
+    its bound (shade_bound, over the launch's own lists) and whether every
+    output equals the twin's and each baseline's to the bit; then the
+    frame's summed shade time by mode and over the launches walked by
+    groups.  A baseline may be a ShadePath.  Returns ok."""
+    if not launches:
+        return True
+    calls = []
+    for mode, _, a, k in launches:
+        kw = {"area": k["area"]} if k.get("area") is not None else {}
+        calls.append((mode, a[:11], a[11:15] if mode != "local" else None,
+                      kw))
+    fns = [shade_launch(K, mode, base, carry, kw)
+           for mode, base, carry, kw in calls]
+    times = time_launches(K, fns, baselines)
+    ok = True
+    n_grouped = 0
+    totals = collections.defaultdict(lambda: [0.0] * (len(times) + 1))
+    for i, (mode, base, carry, kw) in enumerate(calls):
+        sd, o, t = base[0], base[1], base[3]
+        R = o.shape[0]
+        live = None if mode == "local" else carry[3]
+        kern, twin = shade_calls(K, mode, kw)
+        args = base if mode == "local" else base + carry
+        got = kern(*args)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        ref = twin(*args)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain = ev[0].elapsed_time(ev[1])
+        eq = exact_diff(got, ref)
+        beq = []
+        for b in baselines:
+            with b.active(K):
+                beq.append(exact_diff(got, kern(*args)))
+        ok &= eq == 0 and not any(beq)
+        need, _ = walk_need(K, base, mode, live, kw)
+        lanes = (t < 5e29) if live is None else live
+        pairs = need.sum(1).tolist()
+        lists = []
+        for li, (_, counts) in enumerate(base[8]):
+            held = need[li].reshape(-1, K.RT).any(1)
+            n = counts.sum(1).double()[held]
+            lists.append(f"{float(n.mean()):.0f}/{int(n.max())}"
+                         if n.numel() else "-")
+        n_pairs = int(sum(pairs))
+        grouped = K.shade_grouped(sd, R)
+        cap = K.group_cap(sd, K.SHADE_G_MAX)
+        how = (f"groups G={K.shade_walk_group(n_pairs, cap)}" if grouped
+               else "block")
+        bms, by, _, ops = shade_bound(sd, base, carry, mode, kw, need)
+        n_grouped += grouped
+        for key in (mode, "all") + (("grouped",) if grouped else ()):
+            for j, (_, ms) in enumerate(times):
+                totals[key][j] += ms[i]
+            totals[key][-1] += plain
+        print(f"[shade census] {label} #{i} {mode}: R={R}, "
+              f"{'hit' if live is None else 'live'} lanes "
+              f"{int(lanes.sum())}, pairs needing a walk {pairs} "
+              f"({n_pairs}), lists mean/max by light {lists}, {how}; "
+              + "; ".join(f"{lb} {ms[i]:.4f} ms" for lb, ms in times)
+              + f"; bound {bms:.4f} ms by {by} ({ops / 1e9:.4f} GFLOP); "
+              f"twin {plain:.3f} ms (one call); max |diff| against the "
+              f"twin {eq:.3e}"
+              + "".join(f", {b.name}'s {d:.3e}"
+                        for b, d in zip(baselines, beq)))
+    for key in ("escalate", "carry", "local", "grouped", "all"):
+        if key not in totals:
+            continue
+        n = {"all": len(calls), "grouped": n_grouped}.get(
+            key, sum(m == key for m, *_ in calls))
+        mine = totals[key][0]
+        print(f"[shade census] {label}: {key} {n} launches, summed device "
+              f"time per frame this {mine:.4f} ms"
+              + "".join(f"; {lb} {tot:.4f} ms (x{tot / mine:.2f} of this "
+                        f"one's)" for (lb, _), tot in
+                        zip(times[1:], totals[key][1:-1]))
+              + f"; the twins {totals[key][-1]:.1f} ms")
+    print(f"[shade census] {label}: every launch bit-equal to its twin"
+          + (" and to each baseline" if baselines else "")
+          + f" -> {'PASS' if ok else 'FAIL'}")
+    return ok
 
 
 def busy_share(scn, opts, label):
@@ -2095,7 +2272,7 @@ def phase_frames(torch, K, card, results, baseline=()):
                        RenderOptions(width=640, height=480),
                        ("trace_gated", "shade_escalate", "shade_local",
                         "shade_point"), results, "anim6d 6-D f1", card,
-                       reps=1, sizes=True, baseline=baseline)
+                       reps=1)
     opts = RenderOptions(width=640, height=480)
     test4 = scene("test", 4)
     # one timed frame (its profiled frame below is another sample): the
@@ -2104,8 +2281,7 @@ def phase_frames(torch, K, card, results, baseline=()):
     # has run): no warm-up
     ok &= timed_frames(torch, K, test4, opts, ("shade_facets",), results,
                        "test 4-D f0", card, reps=1, warm=False,
-                       also=("trace_gated", "trace_facets", "shade_point"),
-                       sizes=True, baseline=baseline)
+                       also=("trace_gated", "trace_facets", "shade_point"))
     cut = dataclasses.replace(opts, max_optic_depth=PROFILE_DEPTH)
     ok &= busy_share(test4, cut, f"test 4-D f0 -l {PROFILE_DEPTH}")
     r150 = quiet(scene, "random", 5, config="150")
@@ -2138,17 +2314,19 @@ def phase_frames(torch, K, card, results, baseline=()):
                        "area (DISK + RECT) f0", card,
                        also=("trace_closest", "shade_carry"))
     ok &= busy_share(area, opts, "area (DISK + RECT) f0")
-    return ok & registry_frames(torch, K, card, results)
+    return ok & registry_frames(torch, K, card, results, baseline)
 
 
-def registry_frames(torch, K, card, results):
+def registry_frames(torch, K, card, results, baseline=()):
     """The bench rows of the rest of the scene registry at 640x480, fused
     (bench.py's matrix): hypercube f10 and hypercube 'walls' f10 (kd-gated
     orthotopes, a directional light), cluster5d f0 (spheres in a cluster,
     two point lights) and random600 f0 (10,533 leaves behind budgeted
-    gates, the early exit; one timed frame); each with its busy share, and
-    random600's compile_scene host time and the frame's peak device
-    memory."""
+    gates, the early exit; one timed frame, its shade census beside
+    ``baseline``'s kernels); each with its busy share, and random600's
+    compile_scene host time and the peak device memory of an untimed frame
+    rendered before the timed one."""
+    from ndt_tpu_torch.render import engine
     from ndt_tpu_torch.render.engine import RenderOptions
     from ndt_tpu_torch.scene import compile_scene
 
@@ -2174,17 +2352,22 @@ def registry_frames(torch, K, card, results):
     print(f"[frame] random600 5-D compile_scene (host, 600 kd items, the "
           f"budgeted kd build): {float(np.median(times)):.4f} s (median of "
           f"3: {', '.join(f'{x:.4f}' for x in times)})")
+    # the peak over one untimed frame, rendered before the timed one (the
+    # timed frame's shade census holds every launch's inputs)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    ok &= timed_frames(torch, K, r600, opts, (), results,
-                       "random600 5-D f0", card, reps=1, sizes=True,
-                       also=("trace_gated", "trace_facets", "trace_early_exit",
-                             "shade_facets", "shade_point"))
-    peak = torch.cuda.max_memory_allocated()
-    mib = 1 << 20
+    quiet(engine.render_frame, r600, opts)
+    torch.cuda.synchronize()
+    peak, mib = torch.cuda.max_memory_allocated(), 1 << 20
     print(f"[frame] random600 5-D f0 640x480 peak device memory "
           f"{peak / mib:.1f} MiB allocated by torch ({(peak - base) / mib:.1f}"
-          f" MiB above the {base / mib:.1f} MiB held before the frames)")
+          f" MiB above the {base / mib:.1f} MiB held before the frame)")
+    ok &= timed_frames(torch, K, r600, opts, (), results,
+                       "random600 5-D f0", card, reps=1, warm=False,
+                       sizes=True,
+                       also=("trace_gated", "trace_facets", "trace_early_exit",
+                             "shade_facets", "shade_point"),
+                       baseline=baseline)
     ok &= busy_share(r600, opts, "random600 5-D f0")
     return ok
 

@@ -56,7 +56,8 @@ struct NdtTables {
   int n_inf;
   int dim;
   // not a table: the per-launch scratch of a trace walk with a live mask
-  // ([1 + R] int32, trace_closest.cu compact_live); null otherwise
+  // ([1 + R] int32, trace_closest.cu compact_live) or of a shade launch
+  // walked by groups (shade.cu compact_pairs); null otherwise
   int* scratch;
 };
 
@@ -76,6 +77,33 @@ constexpr int NOTINF = (1 << 30) - 1;  // shadow rank cut: finite leaves
 constexpr int RT = 4096;
 // rays per block: a divisor of RT, so every block lies inside one tile
 constexpr int THREADS = 128;
+
+// threads the card runs at once: the H100 SXM's 132 SMs x 1024, eight
+// 128-thread blocks of a 64-register instance per SM (the D = 5, A = 4
+// walks hold five); ndt_tpu_torch.render.kernels.FILL
+constexpr int FILL = 132 * 1024;
+// a warp: the widest group of the trace walk (ndt_tpu_torch.render.kernels
+// G_MAX)
+constexpr int G_MAX = 32;
+
+// the largest power of two G <= cap with n * G <= FILL (1 from n > FILL /
+// 2 on): the threads per ray or pair for n of them (kernels._group_size)
+__host__ __device__ __forceinline__ int group_size(long long n, int cap) {
+  int g = 1;
+  while (g < cap && n * g * 2 <= FILL) g *= 2;
+  return g;
+}
+
+// the widest group that can help: a round walks one family, so no wider
+// than the largest family (a power of two, at most g_max)
+__host__ inline int group_cap(const NdtTables& tb, int g_max) {
+  int n = tb.n_sph;
+  for (const int m : {tb.n_pln, tb.n_quad, tb.n_fct, tb.n_hf})
+    n = m > n ? m : n;
+  int cap = 1;
+  while (cap < g_max && cap * 2 <= n) cap *= 2;
+  return cap;
+}
 
 __device__ __forceinline__ float fma_(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
@@ -304,7 +332,9 @@ __device__ __forceinline__ float quadric_eval(const NdtTables& tb, int n,
   const bool ok_f = is_slab && usable && t_f >= EPS && fabsf(surf) <= EPS &&
                     ends(d_min);
   float t = ok2 ? t_near : (ok1 ? t_far : (ok_f ? t_f : BIG));
-  if (tb.b_gate) {
+  // a miss needs no gate (it stays BIG): most candidates of a dense list
+  // miss, and the gate's 2 B D divisions are the bulk of a gated solve
+  if (tb.b_gate && t < BIG) {
     const size_t g = (size_t)__ldg(tb.qgi + n) * tb.b_gate * D * 2;
     if (!gate_pierced<D>(tb.qgt + g, tb.qgp + g, tb.b_gate, o, v)) t = BIG;
   }

@@ -75,9 +75,10 @@
 //     the outputs.  Each candidate's t comes from the same arithmetic
 //     whichever thread solves it, so the results are the serial walk's to
 //     the bit (with the capped exit: within the cap too).
-//   * G = group_size(n, cap) without any host synchronisation: the largest
-//     power of two with n * G <= FILL, n the launch's rays or live lanes,
-//     and no wider than the scene's largest family (group_cap): a round
+//   * G = group_size(n, cap) (families.cuh) without any host
+//     synchronisation: the largest power of two with n * G <= FILL, n the
+//     launch's rays or live lanes, and no wider than the scene's largest
+//     family (group_cap, at most a warp, G_MAX): a round
 //     walks one family, so on a scene of a few leaves per family (the
 //     test scene's four, one per family) groups only add threads, and its
 //     stack tails keep the serial walk.  Without a live mask the host
@@ -100,33 +101,8 @@ using namespace ndt;
 
 enum TraceMode { CLOSEST = 0, ANY = 1, SHADOW = 2 };
 
-// threads the card runs at once: the H100 SXM's 132 SMs x 1024, eight
-// 128-thread blocks of a 64-register instance per SM (the D = 5, A = 4
-// walks hold five); ndt_tpu_torch.render.kernels.FILL
-constexpr int FILL = 132 * 1024;
-// the widest group: one warp
-constexpr int G_MAX = 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NO_POS = 0x7fffffff;   // list position of "no winner"
-
-// the largest power of two G <= cap with n * G <= FILL (1 from n > FILL /
-// 2 on): the threads per ray for n rays (kernels.walk_group)
-__host__ __device__ __forceinline__ int group_size(long long n, int cap) {
-  int g = 1;
-  while (g < cap && n * g * 2 <= FILL) g *= 2;
-  return g;
-}
-
-// the widest group that can help: a round walks one family, so no wider
-// than the largest family (a power of two, at most G_MAX)
-int group_cap(const NdtTables& tb) {
-  int n = tb.n_sph;
-  for (const int m : {tb.n_pln, tb.n_quad, tb.n_fct, tb.n_hf})
-    n = m > n ? m : n;
-  int cap = 1;
-  while (cap < G_MAX && cap * 2 <= n) cap *= 2;
-  return cap;
-}
 
 // The one-thread-per-ray walk, for launches without a live mask that take
 // one thread per ray (group_size 1): the whole list of the ray's tile.
@@ -430,7 +406,7 @@ int launch(const NdtTables* tb, const float* o, const float* v,
   if (R % RT || tb->dim != NDT_DIM || (live && !tb->scratch)) return -1;
   if (const int err = use_device(device, o)) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cap = group_cap(*tb);
+  const int cap = group_cap(*tb, G_MAX);
   const int g = group_size(R, cap);
   if (live) {
     const int err = (int)cudaMemsetAsync(tb->scratch, 0, sizeof(int), s);

@@ -27,7 +27,10 @@ Counterpart of ``ndt_tpu/render/pallas_trace.py``:
                        L886), optionally with escalate (L1112-1119):
                        csrc/shade.cu, twin shade_carry_ref; a light's
                        shadow walk runs only where its result is read
-                       (_walk_needed), which changes no output
+                       (_walk_needed), which changes no output; a small
+                       launch on a dense scene walks its pairs by groups
+                       over the whole launch (shade_grouped,
+                       shade_walk_group)
   shade_local       <- pallas_shade(carry=None) (L1075-1078): the local
                        colour only, csrc/shade.cu, twin shade_local_ref
 
@@ -66,7 +69,8 @@ N_FAMS = 5     # cull-count columns: sph, pln, quad, fct, hf
 # above this cut is never truncated (pallas_trace NOTINF)
 NOTINF = (1 << 30) - 1
 # rays per twin evaluation chunk (a multiple of RT) and candidates per
-# family evaluated at once: bound the [rays, candidates] temporaries
+# family evaluated at once for a full chunk of rays (more for fewer rays):
+# bound the [rays, candidates] temporaries to _REF_CHUNK * _K_CHUNK
 _REF_CHUNK = 16 * RT
 _K_CHUNK = 64
 LIGHT_KINDS = "dpsa"   # directional, point, spot, area (DISK / RECT)
@@ -152,13 +156,13 @@ FILL = 132 * 1024
 G_MAX = 32
 
 
-def group_cap(scn: DeviceScene) -> int:
+def group_cap(scn: DeviceScene, g_max=G_MAX) -> int:
     """The widest group that can help on the scene: a round walks one
-    family's candidates, so the largest power of two up to G_MAX within
-    the largest family (csrc/trace_closest.cu group_cap)."""
+    family's candidates, so the largest power of two up to ``g_max``
+    within the largest family (csrc/families.cuh group_cap)."""
     n = max(scn.n_sph, scn.n_pln, scn.n_quad, scn.n_fct, scn.n_hf)
     cap = 1
-    while cap < G_MAX and cap * 2 <= n:
+    while cap < g_max and cap * 2 <= n:
         cap *= 2
     return cap
 
@@ -170,11 +174,47 @@ def walk_group(R, n_live=None, cap=G_MAX):
     a live mask (the kernel's host code picks it) or the ``n_live`` live
     lanes with one (the kernel counts them on the device).  G = 1 is one
     thread per ray (from n > FILL / 2 on)."""
-    n = R if n_live is None else int(n_live)
+    return _group_size(R if n_live is None else int(n_live), cap)
+
+
+def _group_size(n, cap):
+    """The largest power of two G <= cap with n * G <= FILL (1 from
+    n > FILL / 2 on): csrc/families.cuh group_size."""
     g = 1
     while g < cap and n * g * 2 <= FILL:
         g *= 2
     return g
+
+
+# The shade kernel walks the shadow rays of a launch of at most FILL / 2
+# rays on a scene of at least SHADE_MIN_LEAVES leaves pair by pair over the
+# whole launch (csrc/shade.cu walk_pairs): each (ray, light) pair whose walk
+# is read by a group of G threads, G up to SHADE_G_MAX (several warps,
+# merged by an atomic).  A tile's list holds at most the scene's leaves;
+# the grouped path's two extra kernels and its memset cost ~0.008 ms a
+# launch, which only lists of hundreds of candidates pay back (the shade
+# census of tools/shade_census.py on an H100: random150 and random600 gain
+# on every frame measured, the scenes of at most 536 leaves lose up to
+# 0.033 ms a frame or gain at most 0.063).
+SHADE_G_MAX = 1024
+SHADE_MIN_LEAVES = 1024
+
+
+def shade_grouped(scn: DeviceScene, R) -> bool:
+    """Does the shade kernel walk a launch of R rays by groups?  The one
+    place that decides: the wrapper then gives the kernel its scratch
+    (_shade_scratch), and csrc/shade.cu ndt_shade walks by groups exactly
+    when it has one.  Else one thread walks each pair inside the block that
+    owns its ray."""
+    return R * 2 <= FILL and scn.n_total >= SHADE_MIN_LEAVES
+
+
+def shade_walk_group(n_pairs, cap):
+    """The threads with which the shade kernel walks each of a grouped
+    launch's ``n_pairs`` (ray, light) pairs (the plain twin of its choice on
+    the device, group_size): the largest power of two G up to ``cap``
+    (group_cap(scn, SHADE_G_MAX)) with n_pairs * G <= FILL."""
+    return _group_size(int(n_pairs), cap)
 
 
 # --------------------------------------------------------------------------
@@ -661,7 +701,8 @@ def _ray_chunks(R):
 
 
 def _closest_ref(scn: DeviceScene, lists, counts, o, v, excl=None,
-                 first_rank=None, reach=None, live=None, cap=None):
+                 first_rank=None, reach=None, live=None, cap=None,
+                 k_chunk=None):
     """Per ray, the closest hit over its tile's candidate list in list
     order with a strict ``<`` (an earlier candidate wins a tie: first-index
     argmin; NaN never wins).  o / v: D components, each a per-ray [R]
@@ -680,6 +721,10 @@ def _closest_ref(scn: DeviceScene, lists, counts, o, v, excl=None,
     is capped there, so a lane whose best lies beyond it may stop early
     with another winner beyond it.
 
+    ``k_chunk``: the candidates of a family evaluated at once (by default
+    _K_CHUNK for a full chunk of _REF_CHUNK rays, more for fewer); the
+    results do not depend on it.
+
     Returns (t [R] (BIG on a miss), mat [R] i32 (-1), family index [R]
     (-1 on a miss), local row [R])."""
     R = lists.shape[0] * RT
@@ -694,6 +739,7 @@ def _closest_ref(scn: DeviceScene, lists, counts, o, v, excl=None,
 
     for r0, r1, tiles in _ray_chunks(R):
         nt = len(tiles)
+        kc = k_chunk or _K_CHUNK * _REF_CHUNK // (r1 - r0)
         tiles = tiles.to(dev)
         oc = [per_ray(x, r0, r1, nt) for x in o]
         vc = [per_ray(x, r0, r1, nt) for x in v]
@@ -702,10 +748,9 @@ def _closest_ref(scn: DeviceScene, lists, counts, o, v, excl=None,
         w1 = torch.zeros((nt, RT), dtype=torch.long, device=dev)
         for fi, (fam, col, off, _) in enumerate(fams):
             k_max = int(counts[tiles, col].max())
-            for k0 in range(0, k_max, _K_CHUNK):
+            for k0 in range(0, k_max, kc):
                 rows, valid = _tile_candidates(
-                    lists, counts, tiles, col, off, k0,
-                    min(k_max, k0 + _K_CHUNK))
+                    lists, counts, tiles, col, off, k0, min(k_max, k0 + kc))
                 t, _ = _eval(scn, fam, rows, oc, vc, False)
                 if excl is not None:
                     t = torch.where(scn.mat[rows + off]
@@ -1273,8 +1318,9 @@ def _shade_args(scn, o, v, t, mat, nrm, props, lvec, culls, kinds, area,
     the lights' stacked culls, the argument tuple)."""
     lists = torch.stack([c[0] for c in culls]).contiguous()
     counts = torch.stack([c[1] for c in culls]).contiguous()
-    tables = _c_tables(scn)
-    return (tables, lists, counts), (
+    scratch = _shade_scratch(scn, len(kinds), o.shape[0], o.device)
+    tables = _c_tables(scn, scratch)
+    return (tables, lists, counts, scratch), (
         ctypes.addressof(tables), _p(o), _p(v), _p(t), _p(mat), _p(nrm),
         _p(props), _p(lvec), "".join(kinds).encode(), len(kinds), _p(area),
         _p(lists), _p(counts), lists.shape[2], int(bool(specular)),
@@ -1301,7 +1347,8 @@ _TABLE_INTS = ("n_sph", "n_pln", "n_quad", "n_fct", "n_hf", "a_quad",
 
 class NdtTables(ctypes.Structure):
     """Mirror of ``struct NdtTables`` in csrc/families.cuh; its last field,
-    ``scratch``, is the trace walk's per-launch scratch, not a table."""
+    ``scratch``, is a trace walk's or a grouped shade launch's per-launch
+    scratch, not a table."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in _TABLE_PTRS] + [
         (name, ctypes.c_int) for name in _TABLE_INTS] + [
@@ -1336,6 +1383,17 @@ def _walk_scratch(live, R):
     if live is None:
         return None
     return torch.empty(1 + R, dtype=torch.int32, device=live.device)
+
+
+def _shade_scratch(scn, n_lights, R, device):
+    """The shade kernel's scratch for a launch it walks by groups
+    (shade_grouped): int32 words for each pair's key [n_lights, R] u64,
+    the pairs of each light and tile [n_lights, R / RT] and their rays
+    [n_lights, R] u16 (csrc/shade.cu PairScratch); else None."""
+    if not shade_grouped(scn, R):
+        return None
+    return torch.empty(2 * n_lights * R + n_lights * (R // RT)
+                       + n_lights * R // 2, dtype=torch.int32, device=device)
 
 
 def _raise_on(err, name):
