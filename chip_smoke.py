@@ -53,6 +53,10 @@ nonzero with no "ok" line):
          capped early exit, also held to the full walk within the cap);
        - shade_area (the shade kernel's 'a' kind): the area scene (a DISK
          and a RECT light) at 640x480, primary and first bounce;
+       - trace_tail (the slot walk of the stack tails, trace_tail_kernel):
+         the densest 4096-ray tile of anim6d's and of test 4-D's 640x480
+         primary rays traced alone, every output equal to the twin's and
+         to the other walks' to the bit; anim6d's timed;
        - the rest of the scene registry, checked only: hypercube 4-D f10
          at 640x480 (a cluster of kd-gated orthotope slabs, A = 3; the
          unfused path's trace_any) and random "600" 5-D at 640x480
@@ -66,7 +70,11 @@ nonzero with no "ok" line):
      lists' lengths, with the exit the candidates within each live lane's
      final t, the group size G the kernel picks, its device time (CUDA
      events) beside each baseline's, held to its twin and to each
-     baseline's bits; and each frame's summed trace time;
+     baseline's bits (a launch walked slot by slot also to the twin's and
+     the other walks' bits on every output); and each frame's summed trace
+     time; for the stack frames also each launch's floors (an empty
+     kernel, a kernel that reads the rays and writes misses, on its grid),
+     its bound, and the walk's share of the frame's trace time;
   4. frames on the card against the C reference's golden PNGs: balls 4-D
      f0 640x480 (RMSE < 1e-3, rows 180:260 against the CPU twins);
      anim6d 160x120 f0-f3 (rows 30:90, RMSE < 1e-3); lights3d 200x150
@@ -98,7 +106,8 @@ nonzero with no "ok" line):
      torch.cuda.synchronize()), each driven with the launch counters set
      to 0 just before its first timed frame and read just after: balls
      1920x1080 (trace_closest, shade_carry), anim6d 640x480 frame 1
-     (trace_gated, shade_escalate, shade_local, shade_point), the test
+     (trace_gated, trace_tail, shade_escalate, shade_local, shade_point),
+     the test
      scene 4-D 640x480 (shade_facets) and random "150" 5-D 640x480
      (trace_facets, trace_early_exit); then the unfused branch: balls
      1920x1080 (trace_any), test 4-D 640x480 (trace_shadow; the golden
@@ -284,6 +293,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                      "ndt_tpu/render/pallas_trace.py:806"),
     "shade_area": ("ndt_tpu_torch/csrc/shade.cu",
                    "ndt_tpu/render/pallas_trace.py:1014"),
+    "trace_tail": ("ndt_tpu_torch/csrc/trace_closest.cu",
+                   "ndt_tpu/render/pallas_trace.py:565"),
 }
 
 
@@ -687,12 +698,12 @@ def print_registers(lines, who):
     shade_kernel instance (<D, A, PRE> where the checkout has the grouped
     walks), of the D = 4, 5 instances of walk_pairs (where it has them) and
     of the TRACE_INSTANCES of each trace kernel (trace_kernel and, where
-    the checkout has it, trace_group_kernel)."""
+    the checkout has them, trace_group_kernel and trace_tail_kernel)."""
     rows = [("shade_kernel", args, stats) for args, stats in sorted(
         kernel_instances(lines, "shade_kernel").items())]
     rows += [("walk_pairs", args, stats) for args, stats in sorted(
         kernel_instances(lines, "walk_pairs").items()) if args[0] in (4, 5)]
-    for kern in ("trace_kernel", "trace_group_kernel"):
+    for kern in ("trace_kernel", "trace_group_kernel", "trace_tail_kernel"):
         inst = kernel_instances(lines, kern)
         rows += [(kern, args, inst[args]) for args in TRACE_INSTANCES
                  if args in inst]
@@ -785,6 +796,46 @@ class ShadePath:
             yield
         finally:
             K.shade_grouped = orig
+
+
+class TracePath:
+    """This checkout's kernels with the trace wrapper's choice of walk
+    forced, timed beside its own choice as a Baseline is: every launch
+    without a live mask walked slot by slot (``tail``: trace_tail_kernel,
+    min(TAIL_K_MAX, leaves) slots), or none (``other``: one thread a ray or
+    groups of G, as before the slot walk)."""
+
+    def __init__(self, tail):
+        self.tail = tail
+        self.name = "tail" if tail else "other"
+
+    @contextlib.contextmanager
+    def active(self, K):
+        orig = K.trace_tail_slots
+        K.trace_tail_slots = lambda scn, R, live=None: (
+            min(K.TAIL_K_MAX, scn.n_total)
+            if self.tail and live is None else 0)
+        try:
+            yield
+        finally:
+            K.trace_tail_slots = orig
+
+
+def bits_equal(a, b, lanes=None):
+    """Every output of two trace calls equal to the bit (NaN equal to NaN)
+    on ``lanes`` [R] bool (every lane by default): the number of lanes that
+    differ."""
+    import torch
+
+    bad = None
+    for x, y in zip(a, b):
+        same = (x == y) | (torch.isnan(x) & torch.isnan(y)) \
+            if x.is_floating_point() else x == y
+        diff = ~same if same.dim() == 1 else ~same.all(1)
+        bad = diff if bad is None else bad | diff
+    if lanes is not None:
+        bad = bad & lanes
+    return int(bad.sum())
 
 
 def time_turns(K, fn, baselines, reps=20):
@@ -1477,6 +1528,54 @@ def phase_kernels(torch, K, results, baseline=()):
         ok &= check_walks(torch, K, scn, 640, 480, results, label, walk)
         if name.startswith("random600"):
             time_random600_shade(torch, K, sd, o, v, live, label)
+    return ok & check_tail(torch, K, results, baseline)
+
+
+def check_tail(torch, K, results, baseline=()):
+    """The slot walk (trace_tail_kernel) at the stack tails' shape: the
+    densest 4096-ray tile of anim6d's 640x480 primary rays (row 1b-q's
+    tail) and of test 4-D's (row 1b-f's), traced alone as the stack loop
+    launches one tile.  Every output equal to the twin's and to the other
+    walks' (TracePath(False)) to the bit; anim6d's launch is the
+    trace_tail row: its time beside the other walk's and each baseline's
+    (in turns), the twin's, and its bound (trace_bound)."""
+    ok = True
+    for scn, label, row in ((scene("anim6d", 6, 1, 4), "anim6d 6-D f1", True),
+                            (scene("test", 4), "test 4-D f0", False)):
+        sd, o, v, live = primary_rays(scn, 640, 480)
+        aux = torch.full((o.shape[0],), -1, dtype=torch.int32, device="cuda")
+        t = K.trace_closest(*trace_args(K, sd, o, v, live, aux))[0]
+        k = densest_tile(K, t, live)
+        rows = slice(k * K.RT, (k + 1) * K.RT)
+        args = trace_args(K, sd, o[rows].contiguous(), v[rows].contiguous(),
+                          live[rows], aux[rows].contiguous())
+        slots = K.trace_tail_slots(sd, K.RT)
+        got = K.trace_closest(*args)
+        ref = K.trace_closest_ref(*args)
+        with TracePath(False).active(K):
+            other = K.trace_closest(*args)
+        diff = (bits_equal(got, ref), bits_equal(got, other))
+        tok, err, tmsg = compare_trace(got, ref, live[rows])
+        rok = bool(slots) and tok and not any(diff)
+        print(f"[kernels] {label} trace_tail one tile (tile {k}, "
+              f"{int(live[rows].sum())} live) with {slots} slots: {tmsg}; "
+              f"lanes differing from the twin {diff[0]}, from the other "
+              f"walk {diff[1]} -> {'PASS' if rok else 'FAIL'}")
+        ok &= rok
+        if not row:
+            continue
+        times = time_turns(K, lambda: K.trace_closest(*args),
+                           list(baseline) + [TracePath(False)])
+        r = results["trace_tail"]
+        r["max_abs_err"] = err
+        r["library_ms"] = None   # no one PyTorch call computes it
+        r["ms"] = times[0][1]
+        r["plain_ms"] = cuda_ms(lambda: K.trace_closest_ref(*args), 3)
+        r["bound_ms"], r["bound_by"] = trace_bound(K, sd, "trace_closest",
+                                                   args, got)
+        print(f"[kernels] {label} trace_tail at {K.RT} rays: "
+              f"{turns_line(times)}, twin {r['plain_ms']:.3f} ms (mean of "
+              f"3), bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
     return ok
 
 
@@ -1562,7 +1661,83 @@ def solved_per_lane(K, sd, counts, reach, t):
     return n.reshape(-1)
 
 
-def census(torch, K, scn, opts, name, label, baselines=()):
+def floor_entry(dim):
+    """The census's floor kernels (csrc/trace_closest.cu ndt_trace_floor:
+    kind 0 an empty kernel, 1 a kernel that reads each ray once and writes
+    its miss) of this checkout's library, bound here: they are no part of
+    the render path."""
+    import ctypes
+
+    from ndt_tpu_torch.kernels import build
+
+    fn = getattr(build.load_library(), f"ndt_trace_floor_d{dim}")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [I, I, I] + [P] * 7 + [I, I, P]
+    fn.restype = I
+    return fn
+
+
+def walk_grid(K, sd, R, live):
+    """(blocks, threads) of the walk kernel a trace launch of R rays runs
+    (csrc/trace_closest.cu launch): 32 rays and K warps a block
+    (trace_tail_kernel, K = kernels.trace_tail_slots), one thread a ray in
+    128-thread blocks (trace_kernel, G = 1), R * G threads
+    (trace_group_kernel without a live mask), or 2 FILL threads (with
+    one)."""
+    k = K.trace_tail_slots(sd, R, live)
+    if k:
+        return R // 32, 32 * k
+    if live is not None:
+        return 2 * K.FILL // 128, 128
+    return R * K.walk_group(R, None, K.group_cap(sd)) // 128, 128
+
+
+def floor_fns(torch, K, args, closest, grid):
+    """(empty, miss): the floor kernels of one trace launch on its grid
+    and stream, writing into outputs of their own."""
+    sd, o, v, aux = args[:4]
+    R, D = o.shape
+    f = dict(device=o.device)
+    t = torch.empty(R, dtype=torch.float32, **f)
+    m = torch.empty(R, dtype=torch.int32, **f)
+    n = torch.empty((R, D), dtype=torch.float32, **f) if closest else None
+    p = (torch.empty((R, K.N_PROPS), dtype=torch.float32, **f) if closest
+         else None)
+    fn = floor_entry(sd.dim)
+
+    def run(kind):
+        err = fn(kind, *grid, K._p(o), K._p(v), K._p(aux), K._p(t), K._p(m),
+                 K._p(n), K._p(p), R, *K._target(o))
+        K._raise_on(err, "trace_floor")
+
+    return (lambda: run(0)), (lambda: run(1))
+
+
+def trace_bound(K, sd, name, args, got):
+    """(bound_ms, bound_by) of one trace launch without the exit: its
+    arguments and outputs moved once (bytes), or the operations of every
+    lane's full walk of its tile's list with the gates of the solves that
+    hit before them (walk_ops), plus in closest mode a winner's re-solve
+    and normal per hit lane and in shadow mode the first-rank pass over the
+    infinite leaves per lane."""
+    import torch
+
+    o, v, lists, counts = args[1], args[2], args[4], args[5]
+    D = o.shape[1]
+    nbytes = (call_bytes(*(a for a in args[1:] if torch.is_tensor(a)))
+              + table_bytes(sd) + call_bytes(*got))
+    ops = walk_ops(sd, lists, counts, [o[:, d] for d in range(D)],
+                   [v[:, d] for d in range(D)])
+    so = solve_ops(sd)
+    if name == "trace_closest":
+        ops += float((got[0] < 5e29).sum()) * (so["sph"] + so["normal"])
+    elif name == "trace_shadow":
+        ops += o.shape[0] * sum(so[K._gid_family(sd, g)[0]]
+                                for g, _ in sd.inf_gids)
+    return bound(nbytes, ops)
+
+
+def census(torch, K, scn, opts, name, label, baselines=(), floors=False):
     """Every ``name`` launch (trace_closest or trace_shadow) of one frame of
     ``scn``, captured where render/trace.py calls the wrapper, re-run: per
     launch R, the lanes it walks for (live lanes with a live mask, else the
@@ -1572,6 +1747,11 @@ def census(torch, K, scn, opts, name, label, baselines=()):
     threads per ray G the kernel walks it with (kernels.walk_group), and
     its device time alone beside each
     baseline's (time_launches); list lengths over the tiles with lanes.
+    With ``floors``, also per launch (Step 0 of the stack tails): an empty
+    kernel's time and the time of a kernel that reads the rays and writes
+    misses, both on the launch's grid and stream and timed as it is
+    (floor_fns, walk_grid), and its bound (trace_bound); then the frame's
+    sums and the walk's share of its time, (ms - empty) / ms.
     Each launch is held to its twin (the f32
     trace bar on the lanes walked) and to each baseline's bits
     (baseline_bits: every lane without the exit, the live lanes with it).
@@ -1590,8 +1770,17 @@ def census(torch, K, scn, opts, name, label, baselines=()):
     twin = getattr(K, name + "_ref")
     fns = [(lambda a=a: kern(*a)) for a in calls]
     times = time_launches(K, fns, baselines)
+    floor_ms = {}
+    if floors:
+        grids = [walk_grid(K, a[0], a[1].shape[0],
+                           a[7] if len(a) > 7 else None) for a in calls]
+        pairs = [floor_fns(torch, K, a, name == "trace_closest", g)
+                 for a, g in zip(calls, grids)]
+        for kind, j in (("empty", 0), ("miss", 1)):
+            floor_ms[kind] = time_launches(K, [p[j] for p in pairs], [])[0][1]
     ok = bool(calls) and len(real) == len(calls)
     totals = [0.0] * len(times)
+    sums = collections.Counter()
     sizes = collections.Counter()
     for i, args in enumerate(calls):
         sd, o, counts = args[0], args[1], args[5]
@@ -1605,6 +1794,17 @@ def census(torch, K, scn, opts, name, label, baselines=()):
         bok, bmsg = baseline_bits(K, baselines, lambda: kern(*args), got,
                                   lanes if reach is not None
                                   else torch.ones_like(lanes))
+        slots = K.trace_tail_slots(sd, R, live)
+        if slots:
+            # the slot walk: every output on every lane equal to the twin's
+            # and to the other walks' to the bit
+            with TracePath(False).active(K):
+                other = kern(*args)
+            diff = (bits_equal(got, ref), bits_equal(got, other))
+            bok &= not any(diff)
+            bmsg = "; ".join(x for x in (bmsg, (
+                f"slots {slots}: lanes differing from the twin {diff[0]}, "
+                f"from the other walk {diff[1]}")) if x)
         ok &= tok and bok
         n_lanes = int(lanes.sum())
         per_tile = lanes.reshape(-1, K.RT).sum(1)
@@ -1618,6 +1818,15 @@ def census(torch, K, scn, opts, name, label, baselines=()):
             sol = solved_per_lane(K, sd, counts, reach, ref[0])[lanes]
             extra = (f", candidates within the final t per live lane mean "
                      f"{float(sol.mean()) if n_lanes else 0.0:.1f}")
+        if floors:
+            bms, by = trace_bound(K, sd, name, args, got)
+            sums["empty"] += floor_ms["empty"][i]
+            sums["miss"] += floor_ms["miss"][i]
+            sums["bound"] += bms
+            extra += (f"; grid {walk_grid(K, sd, R, live)}, empty "
+                      f"{floor_ms['empty'][i]:.4f} ms, miss "
+                      f"{floor_ms['miss'][i]:.4f} ms, bound {bms:.4f} ms "
+                      f"({by})")
         for j, (_, ms) in enumerate(times):
             totals[j] += ms[i]
         sizes[R] += 1
@@ -1627,7 +1836,7 @@ def census(torch, K, scn, opts, name, label, baselines=()):
               f"{float(lists.mean()):.1f} max {int(lists.max())}{extra}, G "
               f"{G}; "
               + "; ".join(f"{lb} {ms[i]:.4f} ms" for lb, ms in times)
-              + f"; twin bar: {tok}" + (f"; {bmsg}" if baselines else ""))
+              + f"; twin bar: {tok}" + (f"; {bmsg}" if bmsg else ""))
     print(f"[census] {label}: {len(calls)} {name} launches, by R "
           f"{dict(sorted(sizes.items()))}; summed device time per frame "
           + "; ".join(f"{lb} {tot:.4f} ms" for (lb, _), tot in
@@ -1635,6 +1844,14 @@ def census(torch, K, scn, opts, name, label, baselines=()):
           + "".join(f" (x{tot / totals[0]:.2f} of this one's)"
                     for tot in totals[1:])
           + f" -> {'PASS' if ok else 'FAIL'}")
+    if floors:
+        print(f"[census] {label} floors: summed empty kernel "
+              f"{sums['empty']:.4f} ms, read-and-miss kernel "
+              f"{sums['miss']:.4f} ms, bound {sums['bound']:.4f} ms; the "
+              f"walk's share of this checkout's {totals[0]:.4f} ms, (ms - "
+              f"empty) / ms: {(totals[0] - sums['empty']) / totals[0]:.4f}, "
+              f"over the read-and-miss floor (ms - miss) / ms: "
+              f"{(totals[0] - sums['miss']) / totals[0]:.4f}")
     return ok
 
 
@@ -1643,7 +1860,8 @@ def phase_census(torch, K, baselines=()):
     random150's fused frame (trace_closest with the early exit, rows 1e)
     and the test scene's unfused frame (trace_shadow, row 1d), then the
     stack loops' closest hits of the test scene's and anim6d's fused
-    frames (rows 1b-f, 1b-q at their stack tails' sizes)."""
+    frames (rows 1b-f, 1b-q at their stack tails' sizes); the three stack
+    frames with their floors."""
     from ndt_tpu_torch.render.engine import RenderOptions
 
     opts = RenderOptions(width=640, height=480)
@@ -1652,11 +1870,11 @@ def phase_census(torch, K, baselines=()):
                 baselines)
     with branch(False):
         ok &= census(torch, K, scene("test", 4), opts, "trace_shadow",
-                     "test 4-D f0 640x480 unfused", baselines)
+                     "test 4-D f0 640x480 unfused", baselines, floors=True)
     ok &= census(torch, K, scene("test", 4), opts, "trace_closest",
-                 "test 4-D f0 640x480 fused", baselines)
+                 "test 4-D f0 640x480 fused", baselines, floors=True)
     ok &= census(torch, K, scene("anim6d", 6, 1, 4), opts, "trace_closest",
-                 "anim6d 6-D f1 640x480 fused", baselines)
+                 "anim6d 6-D f1 640x480 fused", baselines, floors=True)
     return ok
 
 
@@ -2271,8 +2489,8 @@ def phase_frames(torch, K, card, results, baseline=()):
     ok &= timed_frames(torch, K, scene("anim6d", 6, 1, 4),
                        RenderOptions(width=640, height=480),
                        ("trace_gated", "shade_escalate", "shade_local",
-                        "shade_point"), results, "anim6d 6-D f1", card,
-                       reps=1)
+                        "shade_point", "trace_tail"), results,
+                       "anim6d 6-D f1", card, reps=1)
     opts = RenderOptions(width=640, height=480)
     test4 = scene("test", 4)
     # one timed frame (its profiled frame below is another sample): the
@@ -2281,7 +2499,8 @@ def phase_frames(torch, K, card, results, baseline=()):
     # has run): no warm-up
     ok &= timed_frames(torch, K, test4, opts, ("shade_facets",), results,
                        "test 4-D f0", card, reps=1, warm=False,
-                       also=("trace_gated", "trace_facets", "shade_point"))
+                       also=("trace_gated", "trace_facets", "shade_point",
+                             "trace_tail"))
     cut = dataclasses.replace(opts, max_optic_depth=PROFILE_DEPTH)
     ok &= busy_share(test4, cut, f"test 4-D f0 -l {PROFILE_DEPTH}")
     r150 = quiet(scene, "random", 5, config="150")

@@ -59,6 +59,10 @@ struct NdtTables {
   // ([1 + R] int32, trace_closest.cu compact_live) or of a shade launch
   // walked by groups (shade.cu compact_pairs); null otherwise
   int* scratch;
+  // not a table: the slots per ray of a trace launch walked by
+  // trace_tail_kernel (trace_closest.cu), set by the wrapper
+  // (kernels.trace_tail_slots); 0 for the other walks
+  int tail_k;
 };
 
 namespace ndt {

@@ -80,8 +80,13 @@
 //     launch's rays or live lanes, and no wider than the scene's largest
 //     family (group_cap, at most a warp, G_MAX): a round
 //     walks one family, so on a scene of a few leaves per family (the
-//     test scene's four, one per family) groups only add threads, and its
-//     stack tails keep the serial walk.  Without a live mask the host
+//     test scene's four, one per family) groups only add threads.  Such a
+//     scene's stack tails (one to a few 4096-ray tiles over lists of <= 5
+//     candidates of several families, ~10 us a launch of which 3-4 us the
+//     serial walk) take the slot walk instead (trace_tail_kernel, below)
+//     when the wrapper passes K slots in tb.tail_k
+//     (kernels.trace_tail_slots decides; this file takes the walk it is
+//     given).  Without a live mask the host
 //     picks G from R.  With one (the early exit), a prologue
 //     (compact_live, one block per tile) gathers the live lanes by ballot
 //     and prefix into a scratch index with their number and writes the
@@ -103,6 +108,9 @@ enum TraceMode { CLOSEST = 0, ANY = 1, SHADOW = 2 };
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NO_POS = 0x7fffffff;   // list position of "no winner"
+// the most slots (warps) of trace_tail_kernel's blocks
+// (ndt_tpu_torch.render.kernels TAIL_K_MAX)
+constexpr int TAIL_K_MAX = 8;
 
 // The one-thread-per-ray walk, for launches without a live mask that take
 // one thread per ray (group_size 1): the whole list of the ray's tile.
@@ -177,6 +185,127 @@ trace_kernel(NdtTables tb, const float* __restrict__ o,
   for (int j = 0; j < N_PROPS; ++j)
     p_out[(size_t)r * N_PROPS + j] =
         m1 >= 0 ? __ldg(props + m1 * N_PROPS + j) : 0.f;
+}
+
+// The walk of a launch the wrapper gives K = tb.tail_k slots (the stack
+// tails: one or a few 4096-ray tiles over short lists of several
+// families): a block takes 32 rays of one tile and K warps, and warp k
+// solves the candidates k, k + K, ... of the tile's list (list order,
+// family by family) for its 32 rays.  The 32 threads of a warp run one
+// family's code on one row: no divergence, each table read one broadcast,
+// and a ray's solves -- each a dependent chain of divisions and roots --
+// run side by side in K warps instead of one after another.  Each thread
+// keeps its best (t, list position) by a strict '<' over its candidates,
+// which come in list order; the K bests of a ray meet in shared memory,
+// where the least (t, position) wins: the earlier candidate of a tie, the
+// serial walk's winner.  In closest mode each solve also computes its
+// normal (eval_fam<NORMAL>: the normal's operations come after t and change
+// none of its own, so t has the bits of the solve without it, and the
+// normal those of the serial walk's re-solve of its winner), and the warp
+// that holds the winner writes the ray's outputs (warp 0 on a miss).  In
+// shadow mode the K warps split the first-rank pass over the infinite
+// leaves and take the least rank through shared memory.
+template <int D, int A, int MODE>
+__global__ void __launch_bounds__(32 * TAIL_K_MAX)
+trace_tail_kernel(NdtTables tb, const float* __restrict__ o,
+                  const float* __restrict__ v,
+                  const int* __restrict__ excl_mat,
+                  const float* __restrict__ limit,
+                  const int* __restrict__ lists,
+                  const int* __restrict__ counts, int n_list,
+                  const float* __restrict__ props, float* __restrict__ t_out,
+                  int* __restrict__ m_out, float* __restrict__ n_out,
+                  float* __restrict__ p_out) {
+  __shared__ float s_t[TAIL_K_MAX][32];
+  __shared__ int s_p[TAIL_K_MAX][32];
+  const int K = blockDim.x >> 5;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * 32 + lane;   // R is whole tiles: no tail
+  const int tile = r / RT;
+  float ro[D], rv[D], nrm[D], bn[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    ro[d] = o[(size_t)r * D + d];
+    rv[d] = v[(size_t)r * D + d];
+    nrm[d] = 0.f;
+    bn[d] = 0.f;
+  }
+  const int* lst = lists + (size_t)tile * n_list;
+  const int* cnt = counts + (size_t)tile * N_FAMS;
+
+  int excl = -1, first_rank = NOTINF;
+  if (MODE == SHADOW) {
+    const float lim = limit[r];
+    for (int i = w; i < tb.n_inf; i += K) {
+      const float t_e = eval_gid<D, A>(tb, __ldg(tb.inf + 2 * i), ro, rv);
+      if (t_e < lim && t_e < BIG * 0.5f)
+        first_rank = min(first_rank, __ldg(tb.inf + 2 * i + 1));
+    }
+    s_p[w][lane] = first_rank;
+    __syncthreads();
+    for (int k = 0; k < K; ++k) first_rank = min(first_rank, s_p[k][lane]);
+    __syncthreads();
+  } else {
+    excl = excl_mat[r];
+  }
+
+  float t1 = BIG;
+  int p1 = NO_POS, m1 = -1;
+  int gid0 = 0, base = 0;   // base: the list's candidates before family f
+#pragma unroll
+  for (int f = 0; f < N_FAMS; ++f) {
+    const int c = __ldg(cnt + f);
+    // this warp's first candidate of the family: (base + k) % K == w
+    for (int k = ((w - base) % K + K) % K; k < c; k += K) {
+      const int gid = __ldg(lst + gid0 + k);
+      if (MODE == SHADOW) {
+        const int rank = __ldg(tb.rank + gid);
+        if (rank < NOTINF && rank > first_rank) continue;
+      }
+      float t = eval_fam<D, A, MODE == CLOSEST>(tb, f, gid - gid0, ro, rv,
+                                                nrm);
+      const int mat = __ldg(tb.mat + gid);
+      if (MODE != SHADOW && mat == excl) t = BIG;
+      if (t < t1) {
+        t1 = t;
+        p1 = gid0 + k;
+        m1 = mat;
+        if (MODE == CLOSEST) {
+#pragma unroll
+          for (int d = 0; d < D; ++d) bn[d] = nrm[d];
+        }
+      }
+    }
+    base += c;
+    gid0 += fam_size(tb, f);
+  }
+  // the best's props, read before the barrier: their latency overlaps it
+  float pr[N_PROPS];
+#pragma unroll
+  for (int j = 0; j < N_PROPS; ++j)
+    pr[j] = MODE == CLOSEST && m1 >= 0 ? __ldg(props + m1 * N_PROPS + j)
+                                       : 0.f;
+  s_t[w][lane] = t1;
+  s_p[w][lane] = p1;
+  __syncthreads();
+  float tw = BIG;
+  int pw = NO_POS;
+  for (int k = 0; k < K; ++k) {
+    const float ot = s_t[k][lane];
+    const int op = s_p[k][lane];
+    if (ot < tw || (ot == tw && op < pw)) {
+      tw = ot;
+      pw = op;
+    }
+  }
+  if (pw == NO_POS ? w != 0 : p1 != pw) return;
+  t_out[r] = tw;
+  m_out[r] = m1;
+  if (MODE != CLOSEST) return;
+#pragma unroll
+  for (int d = 0; d < D; ++d) n_out[(size_t)r * D + d] = bn[d];
+#pragma unroll
+  for (int j = 0; j < N_PROPS; ++j) p_out[(size_t)r * N_PROPS + j] = pr[j];
 }
 
 // Per-launch scratch of a walk with a live mask (NdtTables.scratch,
@@ -403,7 +532,9 @@ int launch(const NdtTables* tb, const float* o, const float* v,
            const int* counts, const float* reach, const unsigned char* live,
            int n_list, const float* props, float* t_out, int* m_out,
            float* n_out, float* p_out, int R, int device, void* stream) {
-  if (R % RT || tb->dim != NDT_DIM || (live && !tb->scratch)) return -1;
+  if (R % RT || tb->dim != NDT_DIM || (live && !tb->scratch) ||
+      tb->tail_k < 0 || tb->tail_k > TAIL_K_MAX || (live && tb->tail_k))
+    return -1;
   if (const int err = use_device(device, o)) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int cap = group_cap(*tb, G_MAX);
@@ -416,7 +547,12 @@ int launch(const NdtTables* tb, const float* o, const float* v,
   }
   return dispatch_a<NDT_DIM>(tb->a_quad, [&](auto a) {
     constexpr int A = decltype(a)::value;
-    if (!live && g == 1)
+    if (tb->tail_k)
+      trace_tail_kernel<NDT_DIM, A, MODE>
+          <<<R / 32, 32 * tb->tail_k, 0, s>>>(*tb, o, v, excl, limit, lists,
+                                               counts, n_list, props, t_out,
+                                               m_out, n_out, p_out);
+    else if (!live && g == 1)
       trace_kernel<NDT_DIM, A, MODE><<<R / THREADS, THREADS, 0, s>>>(
           *tb, o, v, excl, limit, lists, counts, n_list, props, t_out, m_out,
           n_out, p_out, R);
@@ -429,7 +565,56 @@ int launch(const NdtTables* tb, const float* o, const float* v,
   });
 }
 
+// Measurement floors of a trace launch (chip_smoke.py's census; not on the
+// render path), on the grid the launch runs: an empty kernel, and one that
+// reads each ray's o, v and aux once and writes its miss (t BIG, mat -1
+// and, with n_out, a zero normal and zero props).  The miss depends on the
+// reads (a NaN would pass through), so they are not dropped.
+__global__ void empty_kernel() {}
+
+template <int D>
+__global__ void miss_kernel(const float* __restrict__ o,
+                            const float* __restrict__ v,
+                            const int* __restrict__ aux,
+                            float* __restrict__ t_out, int* __restrict__ m_out,
+                            float* __restrict__ n_out,
+                            float* __restrict__ p_out, int R) {
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R;
+       r += gridDim.x * blockDim.x) {
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      s += o[(size_t)r * D + d] * v[(size_t)r * D + d];
+    const int a = aux[r];
+    t_out[r] = s != s ? s : BIG;
+    m_out[r] = a == NO_POS ? 0 : -1;
+    if (!n_out) continue;
+#pragma unroll
+    for (int d = 0; d < D; ++d) n_out[(size_t)r * D + d] = 0.f;
+#pragma unroll
+    for (int j = 0; j < N_PROPS; ++j) p_out[(size_t)r * N_PROPS + j] = 0.f;
+  }
+}
+
 }  // namespace
+
+// The census's floors (kind 0: empty_kernel, 1: miss_kernel) on a grid of
+// blocks x threads; aux is any 4-byte [R] array.
+extern "C" int NDT_ENTRY(ndt_trace_floor)(int kind, int blocks, int threads,
+                                          const float* o, const float* v,
+                                          const int* aux, float* t_out,
+                                          int* m_out, float* n_out,
+                                          float* p_out, int R, int device,
+                                          void* stream) {
+  if (const int err = ndt::use_device(device, o)) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == 0)
+    empty_kernel<<<blocks, threads, 0, s>>>();
+  else
+    miss_kernel<NDT_DIM><<<blocks, threads, 0, s>>>(o, v, aux, t_out, m_out,
+                                                    n_out, p_out, R);
+  return (int)cudaGetLastError();
+}
 
 // R must be a multiple of RT (checked by the wrappers); reach and live are
 // both null (no early exit) or both given; device is the ordinal of the

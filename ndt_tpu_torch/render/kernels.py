@@ -12,7 +12,10 @@ Counterpart of ``ndt_tpu/render/pallas_trace.py``:
                        hfacets (_hfacet_eval L377) with their row gates
                        (_row_gate_pierce L264), and the front-to-back early
                        exit over reach-sorted lists (L701-743):
-                       csrc/trace_closest.cu, twin trace_closest_ref
+                       csrc/trace_closest.cu, twin trace_closest_ref; a
+                       small launch on a scene of few leaves (the stack
+                       tails) walks its lists slot by slot, K warps a
+                       block (trace_tail_slots), in every mode
   trace_any         <- pallas_trace(mode="any") (L662-770): the closest t
                        and material without normal or props, the per-ray
                        excluded material: csrc/trace_closest.cu, twin
@@ -84,8 +87,9 @@ EE_MIN_OBJECTS = 192
 # with orthotope slabs, several quadric axes or kd gates, else under
 # "trace_closest"; an any / shadow mode launch under "trace_any" /
 # "trace_shadow".  Any trace launch counts once more under "trace_facets"
-# when the scene has facets or hfacets, and once more under
-# "trace_early_exit" when it walks reach-sorted lists with the early exit.
+# when the scene has facets or hfacets, once more under "trace_early_exit"
+# when it walks reach-sorted lists with the early exit, and once more under
+# "trace_tail" when its lists are walked slot by slot (trace_tail_slots).
 # A shade launch counts once under its mode ("shade_carry",
 # "shade_escalate", "shade_local"), once more under "shade_point" /
 # "shade_spot" / "shade_area" when its lights include a point / spot /
@@ -93,9 +97,9 @@ EE_MIN_OBJECTS = 192
 # or hfacets.
 launch_counts = {k: 0 for k in (
     "trace_closest", "trace_gated", "trace_any", "trace_shadow",
-    "trace_facets", "trace_early_exit", "shade_carry", "shade_escalate",
-    "shade_local", "shade_point", "shade_spot", "shade_area",
-    "shade_facets")}
+    "trace_facets", "trace_early_exit", "trace_tail", "shade_carry",
+    "shade_escalate", "shade_local", "shade_point", "shade_spot",
+    "shade_area", "shade_facets")}
 # the frames of a pixel split launch from one host thread per device
 _COUNT_LOCK = threading.Lock()
 
@@ -184,6 +188,36 @@ def _group_size(n, cap):
     while g < cap and n * g * 2 <= FILL:
         g *= 2
     return g
+
+
+# The trace kernel walks a launch slot by slot (csrc/trace_closest.cu
+# trace_tail_kernel) when the wrapper gives it K slots: 32 rays a block, K
+# warps, warp k solving the candidates k, k + K, ... of the tile's list
+# across the families, the K bests of a ray merged in shared memory.  The
+# trace census of every registry frame with both walks forced
+# (tools/trace_census.py on an H100, 640x480 and 160x120) set the rule:
+# every frame in which it picks launches (the stack tails of the test scene
+# and anim6d, the small launches of lights3d and infinite4d) traces faster
+# in every mode; forced on launches that fill the card, or on scenes whose
+# families hold tens of leaves, the slot walk loses to the other walks.
+TAIL_K_MAX = 8
+
+
+def trace_tail_slots(scn: DeviceScene, R, live=None) -> int:
+    """The slots K per ray with which the trace kernel walks a launch of R
+    rays slot by slot, or 0 for the other walks (one thread a ray, or
+    groups of G threads: walk_group).  The one place that decides: the
+    wrapper passes K in the tables (NdtTables.tail_k) and
+    csrc/trace_closest.cu takes the path it is given.
+
+    K = min(TAIL_K_MAX, the scene's leaves): a tile's list holds at most
+    every leaf."""
+    if live is not None:
+        return 0
+    k = min(TAIL_K_MAX, scn.n_total)
+    if R * k > FILL or k <= walk_group(R, None, group_cap(scn)):
+        return 0
+    return k
 
 
 # The shade kernel walks the shadow rays of a launch of at most FILL / 2
@@ -880,22 +914,25 @@ def trace_closest(scn: DeviceScene, o, v, aux, lists, counts, reach=None,
     nrm = torch.empty((R, D), dtype=torch.float32, device=o.device)
     props = torch.empty((R, N_PROPS), dtype=torch.float32, device=o.device)
     scratch = _walk_scratch(live, R)
-    tables = _c_tables(scn, scratch)
+    tail_k = trace_tail_slots(scn, R, live)
+    tables = _c_tables(scn, scratch, tail_k)
     err = fn(ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists),
              _p(counts), _p(reach), _p(live), lists.shape[1], _p(scn.props),
              _p(t), _p(m), _p(nrm), _p(props), R, *_target(o))
     _raise_on(err, "trace_closest")
     _count_trace(scn, "trace_gated" if is_gated(scn) else "trace_closest",
-                 reach)
+                 reach, tail_k)
     return t, m, nrm, props
 
 
-def _count_trace(scn, name, reach):
+def _count_trace(scn, name, reach, tail_k):
     names = [name]
     if has_facets(scn):
         names.append("trace_facets")
     if reach is not None:
         names.append("trace_early_exit")
+    if tail_k:
+        names.append("trace_tail")
     _count(*names)
 
 
@@ -949,12 +986,13 @@ def _launch_walk(name, scn, o, v, aux, lists, counts, reach, live):
     t = torch.empty(R, dtype=torch.float32, device=o.device)
     m = torch.empty(R, dtype=torch.int32, device=o.device)
     scratch = _walk_scratch(live, R)
-    tables = _c_tables(scn, scratch)
+    tail_k = trace_tail_slots(scn, R, live)
+    tables = _c_tables(scn, scratch, tail_k)
     err = fn(ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists),
              _p(counts), _p(reach), _p(live), lists.shape[1], _p(t), _p(m),
              R, *_target(o))
     _raise_on(err, name)
-    _count_trace(scn, name, reach)
+    _count_trace(scn, name, reach, tail_k)
     return t, m
 
 
@@ -1346,13 +1384,14 @@ _TABLE_INTS = ("n_sph", "n_pln", "n_quad", "n_fct", "n_hf", "a_quad",
 
 
 class NdtTables(ctypes.Structure):
-    """Mirror of ``struct NdtTables`` in csrc/families.cuh; its last field,
-    ``scratch``, is a trace walk's or a grouped shade launch's per-launch
-    scratch, not a table."""
+    """Mirror of ``struct NdtTables`` in csrc/families.cuh; its last two
+    fields are no tables: ``scratch``, a trace walk's or a grouped shade
+    launch's per-launch scratch, and ``tail_k``, the slots of a trace launch
+    walked slot by slot (trace_tail_slots; 0 otherwise)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in _TABLE_PTRS] + [
         (name, ctypes.c_int) for name in _TABLE_INTS] + [
-        ("scratch", ctypes.c_void_p)]
+        ("scratch", ctypes.c_void_p), ("tail_k", ctypes.c_int)]
 
 
 def _p(x):
@@ -1368,12 +1407,12 @@ def _target(x):
         torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def _c_tables(scn: DeviceScene, scratch=None) -> NdtTables:
+def _c_tables(scn: DeviceScene, scratch=None, tail_k=0) -> NdtTables:
     return NdtTables(
         *(getattr(scn, k).data_ptr() for k in _TABLE_PTRS),
         *(len(scn.inf_gids) if k == "n_inf" else getattr(scn, k)
           for k in _TABLE_INTS),
-        None if scratch is None else scratch.data_ptr())
+        None if scratch is None else scratch.data_ptr(), tail_k)
 
 
 def _walk_scratch(live, R):

@@ -79,9 +79,9 @@ def test_group_cap_is_the_largest_family(name, dim, config, cap):
 
 def test_walk_scratch_rides_in_the_tables():
     """A walk with a live mask gets [1 + R] int32 of scratch (the live
-    lanes' number and index), passed as the last field of the C tables,
-    whose layout mirrors struct NdtTables (20 pointers, 11 ints, the
-    scratch pointer); a walk without one gets none."""
+    lanes' number and index), passed as a field of the C tables, whose
+    layout mirrors struct NdtTables (20 pointers, 11 ints, the scratch
+    pointer, the tail slots); a walk without one gets none."""
     from ndt_tpu_torch.render import kernels as K
     from ndt_tpu_torch.scene import compile_scene, to_device
 
@@ -96,7 +96,9 @@ def test_walk_scratch_rides_in_the_tables():
     ptr, i32 = ctypes.sizeof(ctypes.c_void_p), ctypes.sizeof(ctypes.c_int)
     assert K.NdtTables.scratch.offset == -(-(20 * ptr + 11 * i32) // ptr) \
         * ptr
-    assert ctypes.sizeof(K.NdtTables) == K.NdtTables.scratch.offset + ptr
+    assert K.NdtTables.tail_k.offset == K.NdtTables.scratch.offset + ptr
+    assert ctypes.sizeof(K.NdtTables) == -(-(K.NdtTables.tail_k.offset
+                                             + i32) // ptr) * ptr
 
 
 # --------------------------------------------------------------------------
