@@ -51,6 +51,12 @@ nonzero with no "ok" line):
          shadow rays of test 4-D 640x480 (trace_shadow, 921600 rays, two
          infinite leaves in the rank pass) and random150's five (the
          capped early exit, also held to the full walk within the cap);
+         an any batch the wrapper culls (trace_any_cull: each warp's 32
+         rays tested against the tile's list, kernels.any_warp_cull) is
+         held to the twin and to the walk without the cull on every
+         output and lane to the bit, and timed in turns with that walk
+         (the trace_any row's cull_off_ms) and each baseline, with the
+         lane-candidates of both walks;
        - shade_area (the shade kernel's 'a' kind): the area scene (a DISK
          and a RECT light) at 640x480, primary and first bounce;
        - trace_tail (the slot walk of the stack tails, trace_tail_kernel):
@@ -74,7 +80,11 @@ nonzero with no "ok" line):
      the other walks' bits on every output); and each frame's summed trace
      time; for the stack frames also each launch's floors (an empty
      kernel, a kernel that reads the rays and writes misses, on its grid),
-     its bound, and the walk's share of the frame's trace time;
+     its bound, and the walk's share of the frame's trace time; then
+     every trace_any launch of balls' unfused 1920x1080 frame and of
+     hypercube f10's unfused 640x480 frame (row 1c) with their floors,
+     the lane-candidates of the full and the warp-culled walk, the walk
+     without the cull in turns, every output equal to the twin's;
   4. frames on the card against the C reference's golden PNGs: balls 4-D
      f0 640x480 (RMSE < 1e-3, rows 180:260 against the CPU twins);
      anim6d 160x120 f0-f3 (rows 30:90, RMSE < 1e-3); lights3d 200x150
@@ -110,7 +120,8 @@ nonzero with no "ok" line):
      the test
      scene 4-D 640x480 (shade_facets) and random "150" 5-D 640x480
      (trace_facets, trace_early_exit); then the unfused branch: balls
-     1920x1080 (trace_any), test 4-D 640x480 (trace_shadow; the golden
+     1920x1080 (trace_any, trace_any_cull), test 4-D 640x480
+     (trace_shadow; the golden
      phase's frame its warm-up) and random "150" (trace_shadow with the
      capped early exit); and the area scene 640x480 on the fused branch
      (shade_area): s/frame, rays/frame, Mrays/s, the probe's taint share,
@@ -295,6 +306,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                    "ndt_tpu/render/pallas_trace.py:1014"),
     "trace_tail": ("ndt_tpu_torch/csrc/trace_closest.cu",
                    "ndt_tpu/render/pallas_trace.py:565"),
+    "trace_any_cull": ("ndt_tpu_torch/csrc/trace_closest.cu",
+                       "ndt_tpu/render/pallas_trace.py:662"),
 }
 
 
@@ -690,7 +703,10 @@ def blocks_per_sm(regs, smem, threads=128):
 # balls (closest, any), anim6d, test 4-D (closest, shadow) and random150
 # (closest, shadow)
 TRACE_INSTANCES = ((4, 1, 0), (4, 1, 1), (6, 2, 0), (4, 2, 0), (4, 2, 2),
-                   (5, 4, 0), (5, 4, 2))
+                   (5, 4, 0), (5, 4, 2), (4, 3, 1))
+# the warp-culled any walk's instances <D, A> of the timed paths (balls,
+# hypercube, lights3d)
+CULL_INSTANCES = ((4, 1), (4, 3), (3, 2))
 
 
 def print_registers(lines, who):
@@ -698,7 +714,8 @@ def print_registers(lines, who):
     shade_kernel instance (<D, A, PRE> where the checkout has the grouped
     walks), of the D = 4, 5 instances of walk_pairs (where it has them) and
     of the TRACE_INSTANCES of each trace kernel (trace_kernel and, where
-    the checkout has them, trace_group_kernel and trace_tail_kernel)."""
+    the checkout has them, trace_group_kernel, trace_tail_kernel and
+    trace_any_cull_kernel's CULL_INSTANCES)."""
     rows = [("shade_kernel", args, stats) for args, stats in sorted(
         kernel_instances(lines, "shade_kernel").items())]
     rows += [("walk_pairs", args, stats) for args, stats in sorted(
@@ -707,6 +724,9 @@ def print_registers(lines, who):
         inst = kernel_instances(lines, kern)
         rows += [(kern, args, inst[args]) for args in TRACE_INSTANCES
                  if args in inst]
+    inst = kernel_instances(lines, "trace_any_cull_kernel")
+    rows += [("trace_any_cull_kernel", args, inst[args])
+             for args in CULL_INSTANCES if args in inst]
     for kern, args, (regs, st, ld, smem) in rows:
         print(f"[build] {who} {kern}<{', '.join(map(str, args))}>: "
               f"{regs} registers, spill stores {st} B, spill loads {ld} B, "
@@ -725,7 +745,9 @@ class Baseline:
     """Another checkout's kernels (``tree``/ndt_tpu_torch/csrc/shade.cu and
     trace_closest.cu, built as kernels/build.py builds this one's, one nvcc
     per source and D of BASELINE_DIMS, all started at once), timed beside
-    this one's in one call.  Its C interface must be this checkout's."""
+    this one's in one call.  Its C interface must be this checkout's, but
+    for ndt_trace_any_cull: a checkout from before the warp-culled walk
+    lacks it, and then walks such a launch with its ndt_trace_any."""
 
     def __init__(self, tree):
         from ndt_tpu_torch.kernels import build
@@ -763,7 +785,9 @@ class Baseline:
                        capture_output=True)
         self.lib = ctypes.CDLL(path)
         for d in BASELINE_DIMS:
-            build.bind(self.lib, d)
+            build.bind(self.lib, d, [(name, argtypes)
+                                     for name, argtypes in build.ENTRIES
+                                     if hasattr(self.lib, f"{name}_d{d}")])
         print_registers(report, self.name)
 
     @contextlib.contextmanager
@@ -771,11 +795,22 @@ class Baseline:
         """The trace and shade wrappers launch this checkout's kernels in
         the block."""
         orig = K._entry
-        K._entry = lambda x, name, dim: getattr(self.lib, f"{name}_d{dim}")
+        K._entry = self.entry
         try:
             yield
         finally:
             K._entry = orig
+
+    def entry(self, x, name, dim):
+        """Its entry point ``name``; without ndt_trace_any_cull, its
+        ndt_trace_any on the same launch (no live mask, no slots)."""
+        if name == "ndt_trace_any_cull" and not hasattr(
+                self.lib, f"{name}_d{dim}"):
+            walk = getattr(self.lib, f"ndt_trace_any_d{dim}")
+            return lambda tb, o, v, aux, lists, counts, n_list, bnd, aabb, \
+                *out: walk(tb, o, v, aux, lists, counts, None, None, n_list,
+                           *out)
+        return getattr(self.lib, f"{name}_d{dim}")
 
 
 class ShadePath:
@@ -819,6 +854,27 @@ class TracePath:
             yield
         finally:
             K.trace_tail_slots = orig
+
+
+class AnyCull:
+    """This checkout's kernels with the any walk's warp cull forced, timed
+    beside the wrapper's choice as a Baseline is: every any-mode launch
+    without a live mask culled (``cull on``), or none (``cull off``:
+    trace_kernel's one thread a ray, the group walk or the slot walk, as
+    before the cull)."""
+
+    def __init__(self, on):
+        self.on = on
+        self.name = "cull on" if on else "cull off"
+
+    @contextlib.contextmanager
+    def active(self, K):
+        orig = K.any_warp_cull
+        K.any_warp_cull = lambda scn, R, live=None: self.on and live is None
+        try:
+            yield
+        finally:
+            K.any_warp_cull = orig
 
 
 def bits_equal(a, b, lanes=None):
@@ -1374,10 +1430,18 @@ def check_walks(torch, K, scn, W, H, results, label, name, limit=None,
     batch the unfused path launches for the primary hits of a W x H frame
     of ``scn``; with the early exit also the capped shadow exit against
     the full walk (t and material equal where the full walk's winner is
-    within limit * (1 + 1e-3) + 0.01, beyond it both beyond it).  The
-    first batch is timed, and its numbers go into ``results`` when the
-    kernel has none yet; ``baseline``: other checkouts' trace kernels
-    timed beside it and held to its bits."""
+    within limit * (1 + 1e-3) + 0.01, beyond it both beyond it).  A
+    trace_any batch the wrapper culls (kernels.any_warp_cull) is also held
+    to the twin and to the walk without the cull (AnyCull(0)) on every
+    output and lane to the bit.  The first batch is timed, and its numbers
+    go into ``results`` when the kernel has none yet; ``baseline``: other
+    checkouts' trace kernels timed beside it and held to its bits.  A
+    culled first batch is timed in turns with the walk without the cull
+    too, with the lane-candidates of both walks (warp_walk): its numbers
+    go into the trace_any_cull row and the trace_any row (which counts
+    every any-mode launch, these among them), the walk without the cull's
+    into trace_any's cull_off_ms; both rows' bounds count the warp-culled
+    walk's solves, the printed line also every lane's full walk."""
     from ndt_tpu_torch.constants import BIG
     from ndt_tpu_torch.mathnd import fma
 
@@ -1405,15 +1469,26 @@ def check_walks(torch, K, scn, W, H, results, label, name, limit=None,
             msg += (f"; capped exit vs full walk: equal within the cap "
                     f"({int(within.sum())} lanes) and beyond it beyond: "
                     f"{eok}")
+        culled = (name == "trace_any"
+                  and K.any_warp_cull(sd, o.shape[0], live))
+        if culled:
+            with AnyCull(False).active(K):
+                other = kern(*args)
+            diff = (bits_equal(got, ref), bits_equal(got, other))
+            wok &= not any(diff)
+            msg += (f"; warp-culled: lanes differing from the twin "
+                    f"{diff[0]}, from the walk without the cull {diff[1]}")
         print(f"[kernels] {label} {name}{' (early exit)' if exit_ else ''} "
               f"batch {i} R={o.shape[0]} live={int(lv.sum())}: {msg} -> "
               f"{'PASS' if wok else 'FAIL'}")
         ok &= wok
         if i:
             continue
-        r = dict(results[name]) if "ms" in results[name] else results[name]
+        row = "trace_any_cull" if culled else name
+        r = dict(results[row]) if "ms" in results[row] else results[row]
         r["max_abs_err"] = err
-        times = time_turns(K, lambda: kern(*args), baseline)
+        times = time_turns(K, lambda: kern(*args), list(baseline)
+                           + ([AnyCull(False)] if culled else []))
         r["ms"] = times[0][1]
         bok, bmsg = baseline_bits(
             K, baseline, lambda: kern(*args), got,
@@ -1438,11 +1513,37 @@ def check_walks(torch, K, scn, W, H, results, label, name, limit=None,
             ops += o.shape[0] * sum(fops[K._gid_family(sd, g)[0]]
                                     for g, _ in sd.inf_gids)
         r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+        extra = ""
+        if culled:
+            full, kept, ops_full, ops_kept = warp_walk(K, sd, args)
+            r["bound_ms"], r["bound_by"] = bound(nbytes, ops_kept)
+            n_full, n_kept = sum(full.values()), sum(kept.values())
+            extra = (f"; lane-candidates full walk {n_full:.0f}, "
+                     f"warp-culled {n_kept:.0f} (x"
+                     f"{n_full / max(n_kept, 1):.2f} fewer; "
+                     + ", ".join(f"{f} {full[f]:.0f} -> {kept[f]:.0f}"
+                                 for f in full)
+                     + f"); operations of the full walk "
+                     f"{ops / PEAK_F32 * 1e3:.4f} ms ({ops / 1e9:.3f} GFLOP),"
+                     f" of the warp-culled walk "
+                     f"{ops_kept / PEAK_F32 * 1e3:.4f} ms "
+                     f"({ops_kept / 1e9:.3f} GFLOP), bytes "
+                     f"{nbytes / PEAK_BYTES * 1e3:.4f} ms")
+            if "ms" not in results[name]:
+                # trace_any's row: every any-mode launch, so the batch as
+                # the wrapper walks it, beside the walk without the cull
+                ra = results[name]
+                ra["max_abs_err"] = err
+                ra["ms"] = r["ms"]
+                ra["cull_off_ms"] = times[-1][1]
+                ra["plain_ms"] = r["plain_ms"]
+                ra["library_ms"] = None
+                ra["bound_ms"], ra["bound_by"] = r["bound_ms"], r["bound_by"]
         print(f"[kernels] {label} {name} at {o.shape[0]} rays: "
               f"{turns_line(times)}{f'; {bmsg}' if baseline else ''}, twin "
               f"{r['plain_ms']:.3f} ms (mean of 3), bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes / 1e6:.2f}"
-              f" MB, {ops / 1e9:.3f} GFLOP)")
+              f" MB, {ops / 1e9:.3f} GFLOP){extra}")
         if exit_:
             full = args[:4] + K.cull_lists(sd, o, v, live=lv, limit=aux)
             ms = cuda_ms(lambda: kern(*full), 20, prefill=True)
@@ -1525,7 +1626,8 @@ def phase_kernels(torch, K, results, baseline=()):
                          {"trace": None, "shade (carry)": "carry",
                           "shade (local)": "local",
                           "shade (escalate)": "escalate"}, results, label)
-        ok &= check_walks(torch, K, scn, 640, 480, results, label, walk)
+        ok &= check_walks(torch, K, scn, 640, 480, results, label, walk,
+                          baseline=baseline if walk == "trace_any" else ())
         if name.startswith("random600"):
             time_random600_shade(torch, K, sd, o, v, live, label)
     return ok & check_tail(torch, K, results, baseline)
@@ -1737,15 +1839,41 @@ def trace_bound(K, sd, name, args, got):
     return bound(nbytes, ops)
 
 
+def warp_walk(K, sd, args):
+    """The any-mode walk of one launch (args: trace_any's) as the warp cull
+    would walk it, counted with its torch mirror (kernels.warp_cull_keep,
+    every warp as the kernel culls it) on the launch's device:
+    (lane-candidates of the full walk, of the warp-culled walk, each by
+    family name, and
+    the operations of each: their solves (solve_ops) and the gates of the
+    solves that hit before them, gated_ops, which the cull leaves
+    alone: a candidate it drops has no hit)."""
+    o, v, lists, counts = args[1], args[2], args[4], args[5]
+    D = o.shape[1]
+    keep = K.warp_cull_keep(sd, o, v, lists, counts)
+    per_warp = counts.double().repeat_interleave(K.RT // 32, 0)
+    ops = solve_ops(sd)
+    full, kept = {}, {}
+    for fam, col, off, sz in K._families(sd):
+        full[fam] = 32 * float(per_warp[:, col].sum())
+        kept[fam] = 32 * float(keep[:, off:off + sz].sum())
+    gates = gated_ops(sd, lists, counts, [o[:, d] for d in range(D)],
+                      [v[:, d] for d in range(D)])
+    return (full, kept, sum(n * ops[f] for f, n in full.items()) + gates,
+            sum(n * ops[f] for f, n in kept.items()) + gates)
+
+
 def census(torch, K, scn, opts, name, label, baselines=(), floors=False):
-    """Every ``name`` launch (trace_closest or trace_shadow) of one frame of
-    ``scn``, captured where render/trace.py calls the wrapper, re-run: per
-    launch R, the lanes it walks for (live lanes with a live mask, else the
-    real lanes before padding), the most in one tile, the tile lists' mean
-    and largest length (counts summed over the families), with the exit the
-    mean candidates within each live lane's final t (solved_per_lane), the
-    threads per ray G the kernel walks it with (kernels.walk_group), and
-    its device time alone beside each
+    """Every ``name`` launch (trace_closest, trace_any or trace_shadow) of
+    one frame of ``scn``, captured where render/trace.py calls the wrapper,
+    re-run: per launch R, the lanes it walks for (live lanes with a live
+    mask, else the real lanes before padding; trace_any: every lane), the
+    most in one tile, the tile lists' mean and largest length (counts
+    summed over the families), with the exit the mean candidates within
+    each live lane's final t (solved_per_lane), for trace_any the lanes in
+    tiles with a list and the lane-candidates of the full walk and of the
+    warp-culled walk (warp_walk), the threads per ray G the kernel walks it
+    with (kernels.walk_group), and its device time alone beside each
     baseline's (time_launches); list lengths over the tiles with lanes.
     With ``floors``, also per launch (Step 0 of the stack tails): an empty
     kernel's time and the time of a kernel that reads the rays and writes
@@ -1769,6 +1897,8 @@ def census(torch, K, scn, opts, name, label, baselines=(), floors=False):
     kern = getattr(K, name)
     twin = getattr(K, name + "_ref")
     fns = [(lambda a=a: kern(*a)) for a in calls]
+    if name == "trace_any":
+        baselines = list(baselines) + [AnyCull(False)]
     times = time_launches(K, fns, baselines)
     floor_ms = {}
     if floors:
@@ -1794,6 +1924,12 @@ def census(torch, K, scn, opts, name, label, baselines=(), floors=False):
         bok, bmsg = baseline_bits(K, baselines, lambda: kern(*args), got,
                                   lanes if reach is not None
                                   else torch.ones_like(lanes))
+        if name == "trace_any":
+            # every output on every lane equal to the twin's
+            diff = bits_equal(got, ref)
+            bok &= not diff
+            bmsg = "; ".join(x for x in (bmsg, (
+                f"lanes differing from the twin {diff}")) if x)
         slots = K.trace_tail_slots(sd, R, live)
         if slots:
             # the slot walk: every output on every lane equal to the twin's
@@ -1818,6 +1954,27 @@ def census(torch, K, scn, opts, name, label, baselines=(), floors=False):
             sol = solved_per_lane(K, sd, counts, reach, ref[0])[lanes]
             extra = (f", candidates within the final t per live lane mean "
                      f"{float(sol.mean()) if n_lanes else 0.0:.1f}")
+        if name == "trace_any":
+            full, kept, ops_full, ops_kept = warp_walk(K, sd, args)
+            listed = int((counts.sum(1) > 0).sum()) * K.RT
+            n_full, n_kept = sum(full.values()), sum(kept.values())
+            for f in full:
+                sums["full " + f] += full[f]
+                sums["kept " + f] += kept[f]
+            sums["listed"] += listed
+            sums["ops full"] += ops_full
+            sums["ops kept"] += ops_kept
+            extra += (f", lanes with a list {listed}, lane-candidates full "
+                      f"{n_full:.0f} ({n_full / max(listed, 1):.2f} a "
+                      f"listed lane), warp-culled {n_kept:.0f} "
+                      f"({n_kept / max(listed, 1):.2f}; x"
+                      f"{n_full / max(n_kept, 1):.2f} fewer), by family "
+                      + ", ".join(f"{f} {full[f] / max(listed, 1):.2f} -> "
+                                  f"{kept[f] / max(listed, 1):.2f}"
+                                  for f in full)
+                      + f"; ops full {ops_full / 1e9:.4f} G, culled "
+                      f"{ops_kept / 1e9:.4f} G, culled "
+                      f"{K.any_warp_cull(sd, R, live)}")
         if floors:
             bms, by = trace_bound(K, sd, name, args, got)
             sums["empty"] += floor_ms["empty"][i]
@@ -1852,6 +2009,18 @@ def census(torch, K, scn, opts, name, label, baselines=(), floors=False):
               f"empty) / ms: {(totals[0] - sums['empty']) / totals[0]:.4f}, "
               f"over the read-and-miss floor (ms - miss) / ms: "
               f"{(totals[0] - sums['miss']) / totals[0]:.4f}")
+    if name == "trace_any" and sums["listed"]:
+        n = sums["listed"]
+        fams = [k[5:] for k in sums if k.startswith("full ")]
+        full = sum(sums["full " + f] for f in fams)
+        kept = sum(sums["kept " + f] for f in fams)
+        print(f"[census] {label} warp cull: lane-candidates a listed lane "
+              f"{full / n:.2f} full, {kept / n:.2f} warp-culled (x"
+              f"{full / max(kept, 1):.2f} fewer; "
+              + ", ".join(f"{f} {sums['full ' + f] / n:.2f} -> "
+                          f"{sums['kept ' + f] / n:.2f}" for f in fams)
+              + f"); operations {sums['ops full'] / 1e9:.4f} G full, "
+              f"{sums['ops kept'] / 1e9:.4f} G warp-culled")
     return ok
 
 
@@ -1861,13 +2030,16 @@ def phase_census(torch, K, baselines=()):
     and the test scene's unfused frame (trace_shadow, row 1d), then the
     stack loops' closest hits of the test scene's and anim6d's fused
     frames (rows 1b-f, 1b-q at their stack tails' sizes); the three stack
-    frames with their floors."""
+    frames with their floors; then the any-mode walks (row 1c) of balls'
+    unfused 1920x1080 frame and hypercube f10's unfused 640x480 frame,
+    with their floors and the warp cull's lane-candidates."""
     from ndt_tpu_torch.render.engine import RenderOptions
 
     opts = RenderOptions(width=640, height=480)
     ok = census(torch, K, quiet(scene, "random", 5, config="150"), opts,
                 "trace_closest", "random150 5-D f0 640x480 fused",
                 baselines)
+    ok &= any_census(torch, K, baselines)
     with branch(False):
         ok &= census(torch, K, scene("test", 4), opts, "trace_shadow",
                      "test 4-D f0 640x480 unfused", baselines, floors=True)
@@ -1875,6 +2047,25 @@ def phase_census(torch, K, baselines=()):
                  "test 4-D f0 640x480 fused", baselines, floors=True)
     ok &= census(torch, K, scene("anim6d", 6, 1, 4), opts, "trace_closest",
                  "anim6d 6-D f1 640x480 fused", baselines, floors=True)
+    return ok
+
+
+def any_census(torch, K, baselines=()):
+    """The census of the any-mode walks (row 1c), with their floors:
+    every trace_any launch of balls 4-D f0's unfused 1920x1080 frame (the
+    directional shadow rays) and of hypercube 4-D f10's unfused 640x480
+    frame."""
+    from ndt_tpu_torch.render.engine import RenderOptions
+
+    ok = True
+    with branch(False):
+        for scn, (w, h), label in (
+                (balls_scene(), (1920, 1080), "balls 4-D f0 1920x1080"),
+                (scene("hypercube", 4, 10, 2400), (640, 480),
+                 "hypercube 4-D f10 640x480")):
+            ok &= census(torch, K, scn, RenderOptions(width=w, height=h),
+                         "trace_any", label + " unfused", baselines,
+                         floors=True)
     return ok
 
 
@@ -2513,8 +2704,9 @@ def phase_frames(torch, K, card, results, baseline=()):
     # the unfused branch (trace, apply_lights) and the area lights
     with branch(False):
         hd = RenderOptions(width=1920, height=1080)
-        ok &= timed_frames(torch, K, balls_scene(), hd, ("trace_any",),
-                           results, "balls 4-D f0 unfused", card,
+        ok &= timed_frames(torch, K, balls_scene(), hd,
+                           ("trace_any", "trace_any_cull"), results,
+                           "balls 4-D f0 unfused", card,
                            also=("trace_closest",))
         ok &= busy_share(balls_scene(), hd, "balls 4-D f0 unfused")
         # the golden phase rendered this frame on this branch (every kernel
@@ -3419,6 +3611,7 @@ def main(argv=None):
 
     results = {name: dict(name=name, route="cuda", source=src, replaces=rep)
                for name, (src, rep) in KERNELS.items()}
+    results["trace_any_cull"]["launches_counted_in"] = "trace_any"
     ok = True
     phases = (("kernels", lambda: phase_kernels(torch, K, results,
                                                 baseline)),

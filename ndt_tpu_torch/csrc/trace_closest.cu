@@ -11,8 +11,9 @@
 // shadow L826-874).  Its modes:
 //   * closest (ndt_trace_closest): the closest hit, then the winner's
 //     normal and its 8 material properties;
-//   * any (ndt_trace_any, L662-770 without normals): the closest t and
-//     material only, for the directional shadows of the unfused path;
+//   * any (ndt_trace_any and its warp-culled walk ndt_trace_any_cull,
+//     L662-770 without normals): the closest t and material only, for the
+//     directional shadows of the unfused path;
 //   * shadow (ndt_trace_shadow, L806-881): the point-light shadow walk.
 //     aux is the per-ray f32 distance limit.  A first pass over every
 //     infinite leaf of the scene (on the list or not, first_rank_pass
@@ -94,6 +95,12 @@
 //     that number, picks G and loops over the live lanes' groups.  So a
 //     bounce with a few hundred live lanes walks each over a whole warp,
 //     and a full primary batch keeps one thread per ray.
+//   * An any-mode launch that would take one thread a ray culls each
+//     warp's 32 rays against its tile's list before the solves
+//     (trace_any_cull_kernel, below; entry ndt_trace_any_cull, which the
+//     wrapper calls where kernels.any_warp_cull says so): the
+//     directional shadow rays of a tile start at hit points spread in
+//     depth, so its list holds ~3x the candidates a warp can meet.
 #include "families.cuh"
 
 #ifndef NDT_DIM
@@ -185,6 +192,207 @@ trace_kernel(NdtTables tb, const float* __restrict__ o,
   for (int j = 0; j < N_PROPS; ++j)
     p_out[(size_t)r * N_PROPS + j] =
         m1 >= 0 ? __ldg(props + m1 * N_PROPS + j) : 0.f;
+}
+
+// a ray of a warp that culls has |o| at most this in every dimension
+// (ndt_tpu_torch.render.kernels CULL_O_MAX)
+constexpr float CULL_O_MAX = 1e12f;
+
+// a finite float as an int of the same order (-0 below +0), and back: the
+// warp's bounds by __reduce_min_sync / __reduce_max_sync
+__device__ __forceinline__ int order_key(float x) {
+  const int b = __float_as_int(x);
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+__device__ __forceinline__ float from_key(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+}
+
+// The warp test of one finite candidate (its padded geometry box ab =
+// aabb [2][D], read as D float2: 2D floats a row keep each row 8-byte
+// aligned) against the warp's box (box: o lo, o hi -- both widened --,
+// v lo, v hi, 1 / v lo, 1 / v hi, max(|o lo|, |o hi|); D each): true where
+// no lane of the warp can meet it.  cull_lists' slab test of the box
+// (ndt_tpu_torch/render/kernels.py cull_lists) on the warp's box instead of
+// the tile's, with its slack, each division a product with the warp's
+// reciprocal (within 2 ulp of the quotient; the slack is 1e-5 of the exit
+// and EPSILON).  The cull's bounding-sphere test is left out: with it,
+// balls' unfused 1080p launches keep under 1% fewer candidates (the census
+// of chip_smoke.py on an H100), for a second test as costly.  Every
+// comparison that drops is false on a NaN, and fmaxf / fminf pass a NaN
+// bound over.  kernels._warp_drops computes the same operations in the
+// same order.
+template <int D>
+__device__ __forceinline__ bool warp_drops(const float* box,
+                                           const float* __restrict__ ab) {
+  float abv[2 * D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(ab) + i);
+    abv[2 * i] = x.x;
+    abv[2 * i + 1] = x.y;
+  }
+  float elo = -BIG, xhi = BIG;
+  bool never = false;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float VL = box[2 * D + d], VH = box[3 * D + d];
+    const float rl = box[4 * D + d], rh = box[5 * D + d];
+    const float blo = abv[d], bhi = abv[D + d];
+    const float n1l = blo - box[D + d], n2h = bhi - box[d];
+    float el = -BIG, xh = BIG;
+    if (VL > 0.f) {
+      el = n1l >= 0.f ? n1l * rh : n1l * rl;
+      xh = n2h >= 0.f ? n2h * rl : n2h * rh;
+    } else if (VH < 0.f) {
+      el = n2h <= 0.f ? n2h * rl : n2h * rh;
+      xh = n1l <= 0.f ? n1l * rh : n1l * rl;
+    }
+    elo = fmaxf(elo, el);
+    xhi = fminf(xhi, xh);
+    const float sd = (box[6 * D + d] + fmaxf(fabsf(blo), fabsf(bhi))) * 1e-6f;
+    never |= (n2h < -sd && VL >= 0.f) || (n1l > sd && VH <= 0.f);
+  }
+  const float ts = fabsf(xhi) * 1e-5f + EPS;
+  return elo > xhi + ts || xhi < -ts || never;
+}
+
+// The any-mode walk of a launch without a live mask that takes one thread
+// a ray, its warps culled (ndt_trace_any_cull, where
+// kernels.any_warp_cull says so).  A tile's origins spread in depth (the hit points
+// of a 128x32-pixel screen tile), so the tile's list is long, while the 32
+// rays of a warp lie close together.  So:
+//   (a) the warp's box once: the lanes' o and v bounds (__reduce_*_sync on
+//       order keys), the o bounds widened by 1e-5 of their magnitude + 1e-3
+//       (a lane's solve rounds with its origin's magnitude), and the v
+//       bounds' reciprocals, in shared memory; only when every lane is a
+//       unit ray (0.999 <= |v|^2 <= 1.001) with finite components and |o|
+//       <= CULL_O_MAX (dead lanes carry origins near 1e30, padding lanes
+//       v = 1): else the warp solves its whole list;
+//   (b) rounds of 32 candidates of the tile's list, the families one after
+//       another (list order): lane j reads the q0 + j-th and, when it is
+//       finite (bnd r2 >= 0: an infinite leaf always passes), tests it
+//       against the box (warp_drops);
+//   (c) the round's survivors, by ballot, solved by every lane in list
+//       order (__ffs), family by family, each with the unchanged eval_fam
+//       and the strict '<'.
+// A dropped candidate solves to BIG for every lane of the warp, so it
+// could not have changed a lane's (t, mat): the results are trace_kernel's
+// to the bit, the earlier candidate of a tie included.
+template <int D, int A>
+__global__ void __launch_bounds__(THREADS)
+trace_any_cull_kernel(NdtTables tb, const float* __restrict__ o,
+                      const float* __restrict__ v,
+                      const int* __restrict__ excl_mat,
+                      const int* __restrict__ lists,
+                      const int* __restrict__ counts, int n_list,
+                      const float* __restrict__ bnd,
+                      const float* __restrict__ aabb,
+                      float* __restrict__ t_out, int* __restrict__ m_out) {
+  __shared__ float s_box[THREADS / 32][7 * D];
+  const int r = blockIdx.x * THREADS + threadIdx.x;   // R is whole tiles
+  const int lane = threadIdx.x & 31;
+  float* box = s_box[threadIdx.x >> 5];
+  const int tile = r / RT;
+  float ro[D], rv[D], nrm[D];
+  bool unit = true;
+  float v2 = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    ro[d] = o[(size_t)r * D + d];
+    rv[d] = v[(size_t)r * D + d];
+    nrm[d] = 0.f;
+    unit &= isfinite(ro[d]) && isfinite(rv[d]) && fabsf(ro[d]) <= CULL_O_MAX;
+    v2 = d ? v2 + rv[d] * rv[d] : rv[d] * rv[d];
+  }
+  const bool cull = __all_sync(FULL, unit && v2 >= 0.999f && v2 <= 1.001f);
+  if (cull) {
+    float mo = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float olo = from_key(__reduce_min_sync(FULL, order_key(ro[d])));
+      const float ohi = from_key(__reduce_max_sync(FULL, order_key(ro[d])));
+      const float vlo = from_key(__reduce_min_sync(FULL, order_key(rv[d])));
+      const float vhi = from_key(__reduce_max_sync(FULL, order_key(rv[d])));
+      mo = fmaxf(mo, fmaxf(fabsf(olo), fabsf(ohi)));
+      if (lane == d) {
+        box[d] = olo;
+        box[D + d] = ohi;
+        box[2 * D + d] = vlo;
+        box[3 * D + d] = vhi;
+      }
+    }
+    __syncwarp();
+    if (lane < D) {
+      const float pad = mo * 1e-5f + 1e-3f;
+      const float lo = box[lane] - pad, hi = box[D + lane] + pad;
+      box[lane] = lo;
+      box[D + lane] = hi;
+      box[4 * D + lane] = 1.f / box[2 * D + lane];
+      box[5 * D + lane] = 1.f / box[3 * D + lane];
+      box[6 * D + lane] = fmaxf(fabsf(lo), fabsf(hi));
+    }
+    __syncwarp();
+  }
+  const int excl = excl_mat[r];
+  const int* lst = lists + (size_t)tile * n_list;
+  const int* cnt = counts + (size_t)tile * N_FAMS;
+  // each family's count, first position in the rounds and first global id
+  int c[N_FAMS], base[N_FAMS], gid0[N_FAMS];
+  int total = 0, g0 = 0;
+#pragma unroll
+  for (int f = 0; f < N_FAMS; ++f) {
+    c[f] = __ldg(cnt + f);
+    base[f] = total;
+    gid0[f] = g0;
+    total += c[f];
+    g0 += fam_size(tb, f);
+  }
+
+  float t1 = BIG;
+  int m1 = -1;
+  for (int q0 = 0; q0 < total; q0 += 32) {
+    const int q = q0 + lane;
+    const bool in = q < total;
+    // the lane's candidate: its family is the last with base <= q
+    int fb = 0, fg = 0;
+#pragma unroll
+    for (int f = 0; f < N_FAMS; ++f)
+      if (q >= base[f]) {
+        fb = base[f];
+        fg = gid0[f];
+      }
+    const int gid = in ? __ldg(lst + fg + (q - fb)) : 0;
+    const int mat = in ? __ldg(tb.mat + gid) : 0;
+    bool keep = in;
+    if (cull && in && __ldg(bnd + (size_t)gid * (D + 1) + D) >= 0.f)
+      keep = !warp_drops<D>(box, aabb + (size_t)gid * 2 * D);
+    const unsigned kept = __ballot_sync(FULL, keep);
+#pragma unroll
+    for (int f = 0; f < N_FAMS; ++f) {
+      // the round's bits of family f: positions base[f] .. base[f] + c[f]
+      const int lo = base[f] - q0, hi = lo + c[f];
+      const unsigned below_hi =
+          hi >= 32 ? FULL : hi <= 0 ? 0u : (1u << hi) - 1;
+      const unsigned below_lo =
+          lo >= 32 ? FULL : lo <= 0 ? 0u : (1u << lo) - 1;
+      unsigned m = kept & below_hi & ~below_lo;
+      while (m) {
+        const int j = __ffs(m) - 1;
+        m &= m - 1;
+        const int g = __shfl_sync(FULL, gid, j);
+        const int mj = __shfl_sync(FULL, mat, j);
+        float t = eval_fam<D, A, false>(tb, f, g - gid0[f], ro, rv, nrm);
+        if (mj == excl) t = BIG;
+        if (t < t1) {
+          t1 = t;
+          m1 = mj;
+        }
+      }
+    }
+  }
+  t_out[r] = t1;
+  m_out[r] = m1;
 }
 
 // The walk of a launch the wrapper gives K = tb.tail_k slots (the stack
@@ -531,9 +739,11 @@ int launch(const NdtTables* tb, const float* o, const float* v,
            const int* excl, const float* limit, const int* lists,
            const int* counts, const float* reach, const unsigned char* live,
            int n_list, const float* props, float* t_out, int* m_out,
-           float* n_out, float* p_out, int R, int device, void* stream) {
+           float* n_out, float* p_out, int R, int device, void* stream,
+           const float* bnd = nullptr, const float* aabb = nullptr) {
   if (R % RT || tb->dim != NDT_DIM || (live && !tb->scratch) ||
-      tb->tail_k < 0 || tb->tail_k > TAIL_K_MAX || (live && tb->tail_k))
+      tb->tail_k < 0 || tb->tail_k > TAIL_K_MAX || (live && tb->tail_k) ||
+      (bnd && (MODE != ANY || live || tb->tail_k || !aabb)))
     return -1;
   if (const int err = use_device(device, o)) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -547,7 +757,10 @@ int launch(const NdtTables* tb, const float* o, const float* v,
   }
   return dispatch_a<NDT_DIM>(tb->a_quad, [&](auto a) {
     constexpr int A = decltype(a)::value;
-    if (tb->tail_k)
+    if (bnd)
+      trace_any_cull_kernel<NDT_DIM, A><<<R / THREADS, THREADS, 0, s>>>(
+          *tb, o, v, excl, lists, counts, n_list, bnd, aabb, t_out, m_out);
+    else if (tb->tail_k)
       trace_tail_kernel<NDT_DIM, A, MODE>
           <<<R / 32, 32 * tb->tail_k, 0, s>>>(*tb, o, v, excl, limit, lists,
                                                counts, n_list, props, t_out,
@@ -642,6 +855,20 @@ extern "C" int NDT_ENTRY(ndt_trace_any)(
   return launch<ANY>(tb, o, v, aux, nullptr, lists, counts, reach, live,
                      n_list, nullptr, t_out, m_out, nullptr, nullptr, R,
                      device, stream);
+}
+
+// any, warp-culled (trace_any_cull_kernel; no live mask, no slots): the
+// same outputs, with bnd [N, D + 1] and aabb [N, 2, D] the scene's
+// bounding spheres and padded geometry boxes.
+extern "C" int NDT_ENTRY(ndt_trace_any_cull)(
+    const NdtTables* tb, const float* o, const float* v, const int* aux,
+    const int* lists, const int* counts, int n_list, const float* bnd,
+    const float* aabb, float* t_out, int* m_out, int R, int device,
+    void* stream) {
+  if (!bnd) return -1;
+  return launch<ANY>(tb, o, v, aux, nullptr, lists, counts, nullptr, nullptr,
+                     n_list, nullptr, t_out, m_out, nullptr, nullptr, R,
+                     device, stream, bnd, aabb);
 }
 
 // shadow: limit [R] f32 distance limit; t and mat only.

@@ -44,9 +44,11 @@ _I = ctypes.c_int
 SHADE_ARGTYPES = ([_P] * 8 + [ctypes.c_char_p, _I] + [_P] * 3 + [_I] * 4
                   + [_P] * 12 + [_I, _I, _P])
 # ndt_trace_closest_d<D>'s, and ndt_trace_any_d<D>'s and
-# ndt_trace_shadow_d<D>'s (csrc/trace_closest.cu)
+# ndt_trace_shadow_d<D>'s, and ndt_trace_any_cull_d<D>'s
+# (csrc/trace_closest.cu)
 CLOSEST_ARGTYPES = [_P] * 8 + [_I] + [_P] * 5 + [_I, _I, _P]
 WALK_ARGTYPES = [_P] * 8 + [_I] + [_P] * 2 + [_I, _I, _P]
+ANY_CULL_ARGTYPES = [_P] * 6 + [_I] + [_P] * 4 + [_I, _I, _P]
 
 
 def find_nvcc() -> str:
@@ -139,12 +141,17 @@ def load_library():
     return _lib
 
 
-def bind(lib, d):
+# every entry point's name and C signature
+ENTRIES = (("ndt_trace_closest", CLOSEST_ARGTYPES),
+           ("ndt_trace_any", WALK_ARGTYPES),
+           ("ndt_trace_any_cull", ANY_CULL_ARGTYPES),
+           ("ndt_trace_shadow", WALK_ARGTYPES),
+           ("ndt_shade", SHADE_ARGTYPES))
+
+
+def bind(lib, d, entries=ENTRIES):
     """Set the C signatures of a kernel library's D = d entry points."""
-    for name, argtypes in (("ndt_trace_closest", CLOSEST_ARGTYPES),
-                           ("ndt_trace_any", WALK_ARGTYPES),
-                           ("ndt_trace_shadow", WALK_ARGTYPES),
-                           ("ndt_shade", SHADE_ARGTYPES)):
+    for name, argtypes in entries:
         fn = getattr(lib, f"{name}_d{d}")
         fn.argtypes = argtypes
         fn.restype = _I

@@ -88,8 +88,10 @@ EE_MIN_OBJECTS = 192
 # "trace_closest"; an any / shadow mode launch under "trace_any" /
 # "trace_shadow".  Any trace launch counts once more under "trace_facets"
 # when the scene has facets or hfacets, once more under "trace_early_exit"
-# when it walks reach-sorted lists with the early exit, and once more under
-# "trace_tail" when its lists are walked slot by slot (trace_tail_slots).
+# when it walks reach-sorted lists with the early exit, once more under
+# "trace_tail" when its lists are walked slot by slot (trace_tail_slots),
+# and an any-mode launch once more under "trace_any_cull" when its warps
+# are culled (any_warp_cull).
 # A shade launch counts once under its mode ("shade_carry",
 # "shade_escalate", "shade_local"), once more under "shade_point" /
 # "shade_spot" / "shade_area" when its lights include a point / spot /
@@ -97,7 +99,8 @@ EE_MIN_OBJECTS = 192
 # or hfacets.
 launch_counts = {k: 0 for k in (
     "trace_closest", "trace_gated", "trace_any", "trace_shadow",
-    "trace_facets", "trace_early_exit", "trace_tail", "shade_carry",
+    "trace_facets", "trace_early_exit", "trace_tail", "trace_any_cull",
+    "shade_carry",
     "shade_escalate", "shade_local", "shade_point", "shade_spot",
     "shade_area", "shade_facets")}
 # the frames of a pixel split launch from one host thread per device
@@ -218,6 +221,36 @@ def trace_tail_slots(scn: DeviceScene, R, live=None) -> int:
     if R * k > FILL or k <= walk_group(R, None, group_cap(scn)):
         return 0
     return k
+
+
+# The any-mode walk of a launch that takes one thread a ray culls each
+# warp's 32 rays against its tile's list before the solves
+# (csrc/trace_closest.cu trace_any_cull_kernel): a tile's origins spread in
+# depth, so its list is long (balls' directional shadow rays: 15.5
+# candidates a lane), while a warp's box meets a few of them.  A warp whose
+# lanes are not all unit rays with |o| <= CULL_O_MAX walks its whole list.
+# The cull's bounds and rounds cost more than a walk of a few candidates
+# saves: in the trace census of every registry frame with the cull forced
+# (tools/trace_census.py on an H100, 640x480 and 160x120, unfused), the
+# scenes of at most 5 leaves (lights3d, infinite4d) lose 12-17% of their
+# any-mode time, those of 33 leaves or more gain or tie, and every launch
+# the group walk takes (at most FILL / 2 rays) loses: ANY_CULL_LEAVES lies
+# between.
+CULL_O_MAX = 1e12
+ANY_CULL_LEAVES = 16
+
+
+def any_warp_cull(scn: DeviceScene, R, live=None) -> bool:
+    """Does the any-mode walk of a launch of R rays cull its warps?  The
+    one place that decides: the wrapper then launches
+    csrc/trace_closest.cu's ndt_trace_any_cull in place of ndt_trace_any,
+    with the scene's bounding spheres and boxes.  The warp-culled walk
+    takes launches without a live mask that walk one thread a ray
+    (walk_group 1, no slots) on scenes of at least ANY_CULL_LEAVES
+    leaves."""
+    return (live is None and scn.n_total >= ANY_CULL_LEAVES
+            and not trace_tail_slots(scn, R, live)
+            and walk_group(R, None, group_cap(scn)) == 1)
 
 
 # The shade kernel walks the shadow rays of a launch of at most FILL / 2
@@ -412,6 +445,94 @@ def cull_lists(scn: DeviceScene, o, v, live=None, limit=None,
     if want_reach:
         return lists, counts, reach
     return lists, counts
+
+
+# --------------------------------------------------------------------------
+# the any-mode walk's warp cull (csrc/trace_closest.cu trace_any_cull_kernel)
+
+
+def _f(x):
+    """A Python constant as the f32 value a CUDA literal ``xf`` has."""
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def warp_cull_keep(scn: DeviceScene, o, v, lists, counts):
+    """Which candidates of its tile's list each warp of the warp-culled
+    any walk solves: [R / 32, n_list] bool, per warp of 32 consecutive rays
+    (positions past a family's count False).  The kernel's test, with its
+    f32 arithmetic in its order, so that its decisions can be counted and
+    checked on the CPU; no render path calls it.
+
+    A warp culls only when every lane is a unit ray (0.999 <= |v|^2 <=
+    1.001) with finite components and |o| <= CULL_O_MAX in every dimension
+    (dead lanes carry origins near 1e30, padding lanes v = 1): else it
+    solves its whole list.  Its box is the lanes' o and v bounds, the o
+    bounds widened by 1e-5 of their magnitude + 1e-3.  A finite candidate
+    (bnd r^2 >= 0: an infinite leaf always passes) is dropped where
+    cull_lists' slab test of its padded geometry box says no ray of the
+    warp's box can meet it (_warp_drops).  A NaN keeps it."""
+    R, D = o.shape
+    W = R // 32
+    dev = o.device
+    ow, vw = o.reshape(W, 32, D), v.reshape(W, 32, D)
+    v2 = vw[..., 0] * vw[..., 0]
+    for d in range(1, D):
+        v2 = v2 + vw[..., d] * vw[..., d]
+    ok = (torch.isfinite(ow).all(-1) & torch.isfinite(vw).all(-1)
+          & (ow.abs() <= _f(CULL_O_MAX)).all(-1) & (v2 >= _f(0.999))
+          & (v2 <= _f(1.001))).all(1)                       # [W]
+    o_lo, o_hi = ow.amin(1), ow.amax(1)                      # [W, D]
+    v_lo, v_hi = vw.amin(1), vw.amax(1)
+    mo = torch.maximum(o_lo.abs(), o_hi.abs()).amax(1, keepdim=True)
+    pad = mo * _f(1e-5) + _f(1e-3)
+    o_lo, o_hi = o_lo - pad, o_hi + pad
+
+    tile = torch.arange(W, device=dev) // (RT // 32)
+    pos = torch.arange(lists.shape[1], device=dev)[None, :]
+    valid = torch.zeros((W, lists.shape[1]), dtype=torch.bool, device=dev)
+    for _, col, off, sz in _families(scn):
+        valid |= (pos >= off) & (pos < off + counts[tile, col:col + 1])
+    gid = torch.where(valid, lists[tile].long(), 0)          # [W, N]
+    finite = valid & (scn.bnd[gid, D] >= 0.0)
+    drop = _warp_drops(scn.aabb[gid], o_lo[:, None, :], o_hi[:, None, :],
+                       v_lo[:, None, :], v_hi[:, None, :])
+    return valid & ~(ok[:, None] & finite & drop)
+
+
+def _warp_drops(aabb, o_lo, o_hi, v_lo, v_hi):
+    """The warp test of warp_cull_keep on finite candidates (padded
+    geometry boxes aabb [..., 2, D]) against the warp's widened box (o_lo,
+    o_hi, v_lo, v_hi [..., D], broadcast): True where no ray of the box can
+    meet the candidate.  cull_lists' slab test with its slack, each
+    quotient a product with the bound's reciprocal: csrc/trace_closest.cu
+    warp_drops, operation for operation (fmax / fmin pass a NaN over as
+    fmaxf / fminf do)."""
+    D = aabb.shape[-1]
+    blo, bhi = aabb[..., 0, :], aabb[..., 1, :]
+    elo = torch.full(blo.shape[:-1], -BIG, device=aabb.device)
+    xhi = torch.full_like(elo, BIG)
+    never = torch.zeros_like(elo, dtype=torch.bool)
+    for d in range(D):
+        VL, VH = v_lo[..., d], v_hi[..., d]
+        rl, rh = _f(1.0) / VL, _f(1.0) / VH
+        n1l = blo[..., d] - o_hi[..., d]
+        n2h = bhi[..., d] - o_lo[..., d]
+        pos, neg = VL > 0.0, VH < 0.0
+        el = torch.where(pos, torch.where(n1l >= 0.0, n1l * rh, n1l * rl),
+                         torch.where(neg, torch.where(n2h <= 0.0, n2h * rl,
+                                                      n2h * rh), -BIG))
+        xh = torch.where(pos, torch.where(n2h >= 0.0, n2h * rl, n2h * rh),
+                         torch.where(neg, torch.where(n1l <= 0.0, n1l * rh,
+                                                      n1l * rl), BIG))
+        elo = torch.fmax(elo, el)
+        xhi = torch.fmin(xhi, xh)
+        sd = (torch.maximum(o_lo[..., d].abs(), o_hi[..., d].abs())
+              + torch.maximum(blo[..., d].abs(), bhi[..., d].abs())) \
+            * _f(1e-6)
+        never = never | ((n2h < -sd) & (VL >= 0.0)) \
+            | ((n1l > sd) & (VH <= 0.0))
+    tslack = xhi.abs() * _f(1e-5) + _f(EPSILON)
+    return (elo > xhi + tslack) | (xhi < -tslack) | never
 
 
 # --------------------------------------------------------------------------
@@ -925,7 +1046,7 @@ def trace_closest(scn: DeviceScene, o, v, aux, lists, counts, reach=None,
     return t, m, nrm, props
 
 
-def _count_trace(scn, name, reach, tail_k):
+def _count_trace(scn, name, reach, tail_k, cull=0):
     names = [name]
     if has_facets(scn):
         names.append("trace_facets")
@@ -933,6 +1054,8 @@ def _count_trace(scn, name, reach, tail_k):
         names.append("trace_early_exit")
     if tail_k:
         names.append("trace_tail")
+    if cull:
+        names.append("trace_any_cull")
     _count(*names)
 
 
@@ -980,19 +1103,31 @@ def _check_walk(scn, o, v, aux, aux_dtype, lists, counts, reach, live):
 
 
 def _launch_walk(name, scn, o, v, aux, lists, counts, reach, live):
-    """Launch ndt_trace_any / ndt_trace_shadow: (t, mat)."""
+    """Launch ndt_trace_any / ndt_trace_shadow: (t, mat).  An any-mode
+    launch that any_warp_cull culls launches ndt_trace_any_cull, with the
+    scene's bounding spheres and boxes."""
     R = o.shape[0]
-    fn = _entry(o, f"ndt_{name}", scn.dim)
+    cull = name == "trace_any" and any_warp_cull(scn, R, live)
+    fn = _entry(o, f"ndt_{name}_cull" if cull else f"ndt_{name}", scn.dim)
     t = torch.empty(R, dtype=torch.float32, device=o.device)
     m = torch.empty(R, dtype=torch.int32, device=o.device)
     scratch = _walk_scratch(live, R)
-    tail_k = trace_tail_slots(scn, R, live)
+    tail_k = 0 if cull else trace_tail_slots(scn, R, live)
     tables = _c_tables(scn, scratch, tail_k)
-    err = fn(ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists),
-             _p(counts), _p(reach), _p(live), lists.shape[1], _p(t), _p(m),
-             R, *_target(o))
+    if cull:
+        _check("bnd", scn.bnd, (scn.n_total, scn.dim + 1), torch.float32,
+               scn.device)
+        _check("aabb", scn.aabb, (scn.n_total, 2, scn.dim), torch.float32,
+               scn.device)
+        err = fn(ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists),
+                 _p(counts), lists.shape[1], _p(scn.bnd), _p(scn.aabb),
+                 _p(t), _p(m), R, *_target(o))
+    else:
+        err = fn(ctypes.addressof(tables), _p(o), _p(v), _p(aux), _p(lists),
+                 _p(counts), _p(reach), _p(live), lists.shape[1], _p(t),
+                 _p(m), R, *_target(o))
     _raise_on(err, name)
-    _count_trace(scn, name, reach, tail_k)
+    _count_trace(scn, name, reach, tail_k, cull)
     return t, m
 
 

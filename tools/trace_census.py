@@ -5,22 +5,27 @@ beside both walks forced and beside other checkouts' kernels.
 
     python3 tools/trace_census.py [--baseline TREE ...] [--frames KEY ...]
                                   [--size WxH ...] [--branch fused unfused]
+                                  [--modes NAME ...] [--tail | --no-tail]
                                   [--log FILE]
 
 For each frame (FRAMES; all by default), size (640x480 and 160x120 by
 default) and branch (fused: trace_closest; unfused: trace, trace_any and
-trace_shadow): one warm-up frame, then one frame whose trace launches are
-captured where render/trace.py calls the wrappers, then each launch re-run
-alone.  Each launch's device time (CUDA events, queue pre-filled) is
-measured for this checkout's walk (``this``: kernels.trace_tail_slots),
-for every launch without a live mask walked slot by slot (``tail``) and
-by the other walks (``other``: one thread a ray, or groups of G), and for
-each ``--baseline`` tree's kernels (another checkout, e.g. a ``git
-archive`` of the parent commit, built as chip_smoke.py builds it), in
-turns (other, this, this, other).  Every output of every launch is held
-to the twin's and to each other's to the bit (with the early exit, on the
-live lanes).  Per frame it prints the summed trace ms of each and by
-mode; the per-launch lines go to ``--log``.  Prints the card's name and power
+trace_shadow), the launches of the wrappers ``--modes`` (all three by
+default): one warm-up frame, then one frame whose trace launches are
+captured where render/trace.py calls the wrappers, then each launch
+re-run alone.  Each launch's device time (CUDA events, queue pre-filled)
+is measured for this checkout's walk (``this``: kernels.trace_tail_slots
+and kernels.any_warp_cull), for every launch without a live mask walked
+slot by slot (``tail``) and by the other walks (``other``: one thread a
+ray, or groups of G) unless ``--no-tail``, in a frame with any-mode
+launches with the any walk's warp cull forced on and off on each such
+launch without a live mask (``cull on``, ``cull off``), and for each
+``--baseline`` tree's kernels (another checkout, e.g. a ``git archive``
+of the parent commit, built as chip_smoke.py builds it), in turns
+(other, this, this, other).  Every output of every launch is held to the
+twin's and to each other's to the bit (with the early exit, on the live
+lanes).  Per frame it prints the summed trace ms of each and by mode;
+the per-launch lines go to ``--log``.  Prints the card's name and power
 limit first; exits nonzero if a launch disagrees.
 """
 
@@ -56,9 +61,9 @@ FRAMES = {
 NAMES = ("trace_closest", "trace_any", "trace_shadow")
 
 
-def frame_census(torch, K, C, scn, opts, label, others, log):
-    """The census of one frame: (ok, {label: summed ms}, {mode: {label:
-    summed ms}})."""
+def frame_census(torch, K, C, scn, opts, label, others, log, names=NAMES):
+    """The census of one frame's launches of the wrappers ``names``: (ok,
+    {label: summed ms}, {mode: {label: summed ms}})."""
     import contextlib
 
     from ndt_tpu_torch.render import engine
@@ -66,14 +71,16 @@ def frame_census(torch, K, C, scn, opts, label, others, log):
 
     C.quiet(engine.render_frame, scn, opts)
     with contextlib.ExitStack() as st:
-        caps = {n: st.enter_context(C.captured(T, n)) for n in NAMES}
+        caps = {n: st.enter_context(C.captured(T, n)) for n in names}
         C.quiet(engine.render_frame, scn, opts)
     torch.cuda.synchronize()
-    calls = [(n, a) for n in NAMES for a, _ in caps[n]]
+    calls = [(n, a) for n in names for a, _ in caps[n]]
     print(f"{label}: launches " + ", ".join(
-        f"{n} {len(caps[n])}" for n in NAMES), file=log)
+        f"{n} {len(caps[n])}" for n in names), file=log)
     if not calls:
         return True, {}, {}
+    if not caps.get("trace_any"):
+        others = [b for b in others if not isinstance(b, C.AnyCull)]
     fns = [(lambda n=n, a=a: getattr(K, n)(*a)) for n, a in calls]
     times = C.time_launches(K, fns, others)
     ok = True
@@ -94,7 +101,9 @@ def frame_census(torch, K, C, scn, opts, label, others, log):
         print(f"{label} {name} #{i}: R={R}, live "
               f"{'-' if live is None else int(live.sum())}, lists max "
               f"{int(args[5].sum(1).max())}, slots "
-              f"{K.trace_tail_slots(sd, R, live)}, G "
+              f"{K.trace_tail_slots(sd, R, live)}, cull "
+              f"{name == 'trace_any' and K.any_warp_cull(sd, R, live)}"
+              f", G "
               f"{K.walk_group(R, None, K.group_cap(sd))}; "
               + "; ".join(f"{lb} {ms[i]:.4f} ms" for lb, ms in times)
               + "; lanes differing: " + ", ".join(
@@ -115,6 +124,10 @@ def main(argv=None):
                     default=["640x480", "160x120"])
     ap.add_argument("--branch", nargs="+", choices=("fused", "unfused"),
                     default=["fused", "unfused"])
+    ap.add_argument("--modes", nargs="+", choices=NAMES, default=list(NAMES),
+                    help="the wrappers whose launches are timed")
+    ap.add_argument("--tail", action=argparse.BooleanOptionalAction,
+                    default=True, help="time the slot walk forced on and off")
     ap.add_argument("--log", default=os.devnull,
                     help="file for the per-launch lines (none by default)")
     args = ap.parse_args(argv)
@@ -136,7 +149,10 @@ def main(argv=None):
     build.load_library()
     for b in baselines:
         b.load()
-    others = baselines + [C.TracePath(False), C.TracePath(True)]
+    others = (baselines
+              + ([C.TracePath(False), C.TracePath(True)] if args.tail
+                 else [])
+              + [C.AnyCull(False), C.AnyCull(True)])
     os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
     ok = True
     with open(args.log, "w") as log:
@@ -150,7 +166,7 @@ def main(argv=None):
                         fok, totals, by_mode = frame_census(
                             torch, K, C, C.quiet(C.scene, *FRAMES[key]),
                             RenderOptions(width=w, height=h), label, others,
-                            log)
+                            log, args.modes)
                     log.flush()
                     ok &= fok
                     modes = "; ".join(
