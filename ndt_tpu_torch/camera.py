@@ -16,6 +16,7 @@ import torch
 
 from ndt_tpu_torch import mathnd
 from ndt_tpu_torch.constants import EPSILON, EYE_OFFSET
+from ndt_tpu_torch.utils import telemetry
 
 
 class CameraType(enum.IntEnum):
@@ -182,10 +183,12 @@ class Camera:
             self.dir_y = self.dir_y / self.zoom
         return self
 
+    @telemetry.traced("ndt.camera.aim")
     def aim(self):
         """camera_aim (camera.c:132-178): with an 'up' vector, search the
         roll ('leveling') angle that best aligns up with the screen's Y,
-        halving the step whenever it stops improving; then aim naively."""
+        halving the step whenever it stops improving; then aim naively.
+        The search's steps count under ``camera.aim_steps``."""
         if float(mathnd.l2norm(self.up)) > 0:
             tmp = Camera(self.dim)
             tmp.set_aim(self.view_point, self.view_target, self.up, 0.0)
@@ -193,7 +196,9 @@ class Camera:
             ang = float(mathnd.angle(self.up, tmp.dir_y))
             curr = 0.0
             delta = np.pi / 10.0
+            steps = 0
             while abs(delta) > (EPSILON / 1000.0):
+                steps += 1
                 last = ang
                 tmp.set_aim(self.view_point, self.view_target, self.up, curr)
                 tmp.aim_naive()
@@ -202,6 +207,7 @@ class Camera:
                     delta = -delta / 2.0
                 curr += delta
             self.leveling = curr
+            telemetry.count("camera.aim_steps", steps)
         return self.aim_naive()
 
     def focus(self, point):

@@ -42,8 +42,11 @@ writes the files.
 Output layout (ndt.c:1840-1873):
   images/<scene>/<D>d[_<stereo>][_<cam>]/<WxH>/<scene>_<WxH>_<frame>.png
 with depth maps in its depth/ and YAML snapshots in
-yaml/<scene>/<scene>_<frame>.yaml.  NDT_PROFILE=<dir> writes a
-torch.profiler chrome trace of the frame loop to <dir>/trace.json.
+yaml/<scene>/<scene>_<frame>.yaml.  NDT_PROFILE=<dir> turns the program's
+tracer on (``utils/telemetry.py``) and writes a torch.profiler chrome trace of
+the frame loop, the program's ``ndt.*`` spans on its CPU timeline, to
+<dir>/trace.json, and to <dir>/counters.json the tracer's counters, each span
+name's total and self seconds and calls, and the kernels' launch counts.
 
 Run it as ``python -m ndt_tpu_torch.cli [flags]``: it renders on the card.
 ``main(argv, device="cpu")`` renders on the CPU through the kernels' plain
@@ -124,6 +127,25 @@ def output_dir(scene_name, dims, mode_str, cam_str, width, height):
         f"{'_' + cam_str if cam_str else ''}", f"{width}x{height}")
 
 
+def write_profile(profile_dir, prof):
+    """NDT_PROFILE's files: the chrome trace of ``prof`` and counters.json
+    (the tracer's counters and spans since it was enabled, and the
+    kernels' launch counts)."""
+    import json
+
+    from ndt_tpu_torch.utils import telemetry
+
+    rec = telemetry.take()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(os.path.join(profile_dir, "counters.json"), "w") as f:
+        json.dump({"counters": rec["counters"], "spans": rec["spans"],
+                   "launches": dict(telemetry.launch_counts)}, f, indent=1,
+                  sort_keys=True)
+    print(f"profiler trace and counters written to {profile_dir}")
+
+
 def main(argv=None, device="cuda"):
     """Parse ``argv`` (sys.argv[1:] when None) and render on ``device``:
     the card unless the caller names the CPU."""
@@ -138,6 +160,7 @@ def main(argv=None, device="cuda"):
     from ndt_tpu_torch.render import animate
     from ndt_tpu_torch.render.engine import RenderOptions
     from ndt_tpu_torch.scenes import get_scene
+    from ndt_tpu_torch.utils import telemetry
     from ndt_tpu_torch.utils.timing import Timer
 
     device = render_device(device)
@@ -278,16 +301,18 @@ def main(argv=None, device="cuda"):
         if device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
-    with prof:
-        results, _, total_rays = animate.render_animation(
-            mod, dims, first, last, total, opts, out_dir,
-            config=args.config, scene_hook=scene_hook, progress=progress,
-            device=device)
+        telemetry.enable()
+    try:
+        with prof:
+            results, _, total_rays = animate.render_animation(
+                mod, dims, first, last, total, opts, out_dir,
+                config=args.config, scene_hook=scene_hook,
+                progress=progress, device=device)
+    finally:
+        if profile_dir:
+            telemetry.disable()
     if profile_dir:
-        os.makedirs(profile_dir, exist_ok=True)
-        path = os.path.join(profile_dir, "trace.json")
-        prof.export_chrome_trace(path)
-        print(f"profiler trace written to {path}")
+        write_profile(profile_dir, prof)
     secs = timer.elapsed()
     rendered = len(results)
     if rendered:

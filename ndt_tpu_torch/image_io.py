@@ -25,6 +25,8 @@ from typing import Optional
 
 import numpy as np
 
+from ndt_tpu_torch.utils import telemetry
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
@@ -258,6 +260,7 @@ class AsyncSaver:
             self._pending = [f for f in self._pending if not f.done()]
             return len(self._pending)
 
+    @telemetry.traced("ndt.save")
     def save(self, path, img_linear, fmt=None, saver=save_image):
         img_copy = np.array(img_linear, copy=True)
         try:

@@ -22,6 +22,8 @@ import subprocess
 import threading
 import time
 
+from ndt_tpu_torch.utils import telemetry
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
@@ -134,9 +136,10 @@ def load_library():
     global _lib
     with _LOCK:
         if _lib is None:
-            lib = ctypes.CDLL(build()[0])
-            for d in DIMS:
-                bind(lib, d)
+            with telemetry.span("ndt.library"):
+                lib = ctypes.CDLL(build()[0])
+                for d in DIMS:
+                    bind(lib, d)
             _lib = lib
     return _lib
 

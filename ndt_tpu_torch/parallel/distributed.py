@@ -31,6 +31,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ndt_tpu_torch.utils import telemetry
+
 
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
@@ -95,6 +97,7 @@ def place_counts(n_local: int) -> list:
     return out
 
 
+@telemetry.traced("ndt.gather")
 def gather_frame(color, depth, rays, shares):
     """All-gather each process's share of a split frame, colour [n, 3] and
     depth [n] numpy, ``shares`` the rows every process holds in rank

@@ -65,6 +65,7 @@ from ndt_tpu_torch.render.shade import apply_lights
 from ndt_tpu_torch.render.trace import (fused_light_info, trace,
                                         trace_fused, trace_fused_step)
 from ndt_tpu_torch.scene.compile import DeviceScene, compile_scene, to_device
+from ndt_tpu_torch.utils import telemetry
 
 
 # rays per bounce-loop batch (engine.RenderOptions.tile's default): a 1080p
@@ -250,10 +251,13 @@ def _run_chain(scn, light_info, o, v, opts, gen=None, escalate=False,
         iters, opts.max_optic_depth)
     carry = _chain_init(o, v)
     while carry[0] < stop and bool(carry[1].any()):
-        carry = _chain_body(scn, light_info, carry, opts, gen, escalate)
+        with telemetry.span("ndt.bounce"):
+            carry = _chain_body(scn, light_info, carry, opts, gen, escalate)
+        telemetry.count("bounce.iters")
     return carry
 
 
+@telemetry.traced("ndt.probe")
 def _probe_taint_frac(scn, light_info, o, v, opts, gen=None):
     """(estimated share of lanes that taint within _ESC_PROBE_ITERS
     bounces, rays the probe traced): the escalating chain on every
@@ -375,7 +379,9 @@ def _run_stack(scn, light_info, o, v, opts, gen=None):
     budget = _node_budget(opts, True)
     carry = _stack_init(o, v, opts)
     while carry[0] < budget and bool((carry[1] > 0).any()):
-        carry = _stack_body(scn, light_info, carry, opts, gen)
+        with telemetry.span("ndt.stack_iter"):
+            carry = _stack_body(scn, light_info, carry, opts, gen)
+        telemetry.count("stack.iters")
     return carry[3], carry[4], carry[5]
 
 
@@ -385,6 +391,7 @@ def frame_generator(device, opts: RenderOptions):
     return torch.Generator(device=device).manual_seed(opts.seed)
 
 
+@telemetry.traced("ndt.batch")
 def render_rays_chunked(scn: DeviceScene, o, v, opts: RenderOptions,
                         gen=None):
     """Trace a batch of primary rays to completion (the host-driven loop
@@ -521,12 +528,14 @@ def render_xy(scn: DeviceScene, cam: CameraData, x, y, opts: RenderOptions,
             scn, cam, torch.as_tensor(x[t0:t0 + tile], device=scn.device),
             torch.as_tensor(y[t0:t0 + tile], device=scn.device), opts, gen,
             eye)
-        colors.append(c.cpu().numpy())
-        depths.append(d.cpu().numpy())
-        nrays += int(n)
+        with telemetry.span("ndt.copy_back"):
+            colors.append(c.cpu().numpy())
+            depths.append(d.cpu().numpy())
+            nrays += int(n)
     return np.concatenate(colors), np.concatenate(depths), nrays
 
 
+@telemetry.traced("ndt.grid")
 def _render_grid(scn: DeviceScene, cam: CameraData, xx, yy,
                  opts: RenderOptions, eye="center", gen=None, split=None):
     """Render a pixel grid from ``eye`` in screen-blocked order, _TILE rays
@@ -562,6 +571,7 @@ def _render_grid(scn: DeviceScene, cam: CameraData, xx, yy,
     return color[:P][inv], depth[:P][inv], nrays
 
 
+@telemetry.traced("ndt.camera")
 def frame_camera(scene_host, opts: RenderOptions, device):
     """The aimed camera's CameraData on ``device`` in opts.dtype with the
     screen's X direction aspect-corrected, as render_image does every
@@ -622,6 +632,7 @@ def panel_grid(W, H, stereo, eye, rows, cols, dt=np.float32):
     return np.meshgrid(xs.astype(dt), ys.astype(dt))
 
 
+@telemetry.traced("ndt.frame")
 def render_frame(scene_host, opts: RenderOptions, device="cuda"):
     """Render a full frame of a host Scene on ``device``: the card unless
     the caller asks for the CPU, where the kernels' plain twins run, in

@@ -55,7 +55,6 @@ r // RT, and every ray of a tile walks that tile's candidate list.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -63,6 +62,7 @@ from ndt_tpu_torch.constants import (BIG, EPSILON, EPSILON2, MIN_PIXEL_FRAC,
                                      SPECULAR_POWER)
 from ndt_tpu_torch.mathnd import fma, sqrt
 from ndt_tpu_torch.scene.compile import N_PROPS, DeviceScene
+from ndt_tpu_torch.utils import telemetry
 
 # rays per cull tile (the JAX kernel's rays per grid program); the CUDA
 # kernels hold the same constant (csrc/families.cuh RT)
@@ -96,27 +96,17 @@ EE_MIN_OBJECTS = 192
 # "shade_escalate", "shade_local"), once more under "shade_point" /
 # "shade_spot" / "shade_area" when its lights include a point / spot /
 # area light, and once more under "shade_facets" when the scene has facets
-# or hfacets.
-launch_counts = {k: 0 for k in (
+# or hfacets.  The counters are utils/telemetry.py's, always on, under a
+# lock: the frames of a pixel split launch from one host thread per device.
+launch_counts = telemetry.launch_counts
+launch_counts.update((k, 0) for k in (
     "trace_closest", "trace_gated", "trace_any", "trace_shadow",
     "trace_facets", "trace_early_exit", "trace_tail", "trace_any_cull",
     "shade_carry",
     "shade_escalate", "shade_local", "shade_point", "shade_spot",
-    "shade_area", "shade_facets")}
-# the frames of a pixel split launch from one host thread per device
-_COUNT_LOCK = threading.Lock()
-
-
-def reset_launch_counts():
-    with _COUNT_LOCK:
-        for k in launch_counts:
-            launch_counts[k] = 0
-
-
-def _count(*names):
-    with _COUNT_LOCK:
-        for k in names:
-            launch_counts[k] += 1
+    "shade_area", "shade_facets"))
+reset_launch_counts = telemetry.reset_launch_counts
+_count = telemetry.count_launch
 
 
 def _families(scn: DeviceScene):
@@ -293,6 +283,7 @@ def _imul(alo, ahi, blo, bhi):
     return cands.amin(0), cands.amax(0)
 
 
+@telemetry.traced("ndt.cull")
 def cull_lists(scn: DeviceScene, o, v, live=None, limit=None,
                want_reach=False):
     """Per-tile object culling (pallas_trace.cull_lists, L1490-1718): for
@@ -1014,6 +1005,7 @@ def _entry(x, name, dim):
     return getattr(load_library(), f"{name}_d{dim}")
 
 
+@telemetry.traced("ndt.launch.trace_closest")
 def trace_closest(scn: DeviceScene, o, v, aux, lists, counts, reach=None,
                   live=None):
     """Closest hit (see trace_closest_ref): the twin on the CPU, the
@@ -1131,6 +1123,7 @@ def _launch_walk(name, scn, o, v, aux, lists, counts, reach, live):
     return t, m
 
 
+@telemetry.traced("ndt.launch.trace_any")
 def trace_any(scn: DeviceScene, o, v, aux, lists, counts, reach=None,
               live=None):
     """Closest t and material (see trace_any_ref): the twin on the CPU,
@@ -1143,6 +1136,7 @@ def trace_any(scn: DeviceScene, o, v, aux, lists, counts, reach=None,
                         live)
 
 
+@telemetry.traced("ndt.launch.trace_shadow")
 def trace_shadow(scn: DeviceScene, o, v, limit, lists, counts, reach=None,
                  live=None):
     """The point-light shadow walk (see trace_shadow_ref): the twin on the
@@ -1422,6 +1416,7 @@ def _check_shade(scn, o, v, t, mat, nrm, props, lvec, culls, kinds, area):
         raise ValueError("area positions given without an area light")
 
 
+@telemetry.traced("ndt.launch.shade_carry")
 def shade_carry(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
                 kinds, specular, w, frac, color, live, escalate=False,
                 area=None):
@@ -1453,6 +1448,7 @@ def shade_carry(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
     return out + (taint,) if escalate else out
 
 
+@telemetry.traced("ndt.launch.shade_local")
 def shade_local(scn: DeviceScene, o, v, t, mat, nrm, props, lvec, culls,
                 kinds, specular, area=None):
     """The local colour [R, 3] (see shade_local_ref): the twin on the CPU,

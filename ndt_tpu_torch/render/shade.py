@@ -37,6 +37,7 @@ from ndt_tpu_torch.mathnd import fma, sqrt
 from ndt_tpu_torch.render.kernels import _ipow
 from ndt_tpu_torch.render.trace import occlusion_trace, shadow_trace
 from ndt_tpu_torch.scene.compile import DeviceScene, LightData
+from ndt_tpu_torch.utils import telemetry
 
 AMBIENT, POINT, DIRECTIONAL, SPOT, DISK, RECT = range(6)
 
@@ -84,6 +85,7 @@ def _sample_area_light(light: LightData, gen, R, device,
     return area_points(light, ux, uy)
 
 
+@telemetry.traced("ndt.lights")
 def apply_lights(scn: DeviceScene, src, look, tr, active, gen=None,
                  specular=True, area=None):
     """The local (pre-reflection) colour [R, 3] of rays with a valid hit

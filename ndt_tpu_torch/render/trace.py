@@ -45,6 +45,7 @@ from ndt_tpu_torch.render.kernels import (RT, cull_lists, light_fields,
                                           trace_shadow, use_early_exit)
 from ndt_tpu_torch.scene.compile import NOT_INFINITE, DeviceScene
 from ndt_tpu_torch.scene.model import LightType
+from ndt_tpu_torch.utils import telemetry
 
 
 def _pad_rays(o, v, rt):
@@ -138,6 +139,7 @@ def _area_positions(scn: DeviceScene, kinds, gen, R):
                         if light.kind in (LightType.DISK, LightType.RECT)])
 
 
+@telemetry.traced("ndt.shadow_cull")
 def _shadow_culls(scn, kinds, lvec, o_p, v_p, t, live_p, area=None):
     """Per-light cull lists over the shadow rays each light derives from
     the closest-hit distances (trace._shadow_culls): for 'd' from the hit
@@ -203,6 +205,7 @@ def _trace_padded(scn, o, v, live):
         scn, o_p, v_p, _excl(None, o_p.shape[0], o.device), *cull)
 
 
+@telemetry.traced("ndt.step")
 def trace_fused_step(scn: DeviceScene, light_info, o, v, w, frac, color,
                      live, specular=True, escalate=False, gen=None):
     """One chain-mode bounce in two kernel launches: trace_closest, then
@@ -258,6 +261,7 @@ def _hit(o, v, t, mat, **rest):
                point=fma(v, t[:, None], o), **rest)
 
 
+@telemetry.traced("ndt.step")
 def trace_fused(scn: DeviceScene, light_info, o, v, live, specular=True,
                 gen=None):
     """Closest hit plus the complete local shading in two kernel launches
@@ -415,6 +419,7 @@ def _dense_shadow(dense, o, v, limit):
     return t, dense.mat[idx], None
 
 
+@telemetry.traced("ndt.dense")
 def _dense_call(scn, fn, o, v, live, *rows):
     """Run fn(dense, o, v, *rows) -> (t, mat, normal or None) over the
     live lanes (``live`` None: every lane) in chunks of at most

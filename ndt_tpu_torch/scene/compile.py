@@ -59,6 +59,7 @@ from ndt_tpu_torch import mathnd, native
 from ndt_tpu_torch.constants import BIG, EPSILON
 from ndt_tpu_torch.scene.model import (LightType, Object, Scene,
                                       get_type_info)
+from ndt_tpu_torch.utils import telemetry
 from ndt_tpu_torch.utils.kdtree import build_c_exact
 
 NOT_INFINITE = 1 << 30
@@ -570,8 +571,9 @@ def _build_quadrics(leaves, dim, dt, gates=None):
         hi[k, :a] = hk
         qc_off[k] = q
         is_slab[k] = 1.0 if slab else 0.0
-    gate_tlo, gate_thi, gate_plo, gate_phi = _pack_gate_tables(leaves, dim,
-                                                               gates)
+    with telemetry.span("ndt.compile.pack_gates"):
+        gate_tlo, gate_thi, gate_plo, gate_phi = _pack_gate_tables(
+            leaves, dim, gates)
     return QuadricBlock(
         base=base.astype(dt), axes=axes.astype(dt), gram=gram.astype(dt),
         lo=lo.astype(dt), hi=hi.astype(dt), qc_off=qc_off.astype(dt),
@@ -583,8 +585,9 @@ def _build_quadrics(leaves, dim, dt, gates=None):
 
 def _gated_block(leaves, dim, dt, gates, **fields):
     """The gate boxes, materials and bounds every gated block carries."""
-    gate_tlo, gate_thi, gate_plo, gate_phi = _pack_gate_tables(leaves, dim,
-                                                               gates)
+    with telemetry.span("ndt.compile.pack_gates"):
+        gate_tlo, gate_thi, gate_plo, gate_phi = _pack_gate_tables(
+            leaves, dim, gates)
     return dict(gate_tlo=gate_tlo.astype(dt), gate_thi=gate_thi.astype(dt),
                 gate_plo=gate_plo.astype(dt), gate_phi=gate_phi.astype(dt),
                 mat_id=_mat_ids(leaves), **_bounds_arrays(leaves, dt),
@@ -655,14 +658,20 @@ def compile_lights(scene: Scene, dt):
     return tuple(out)
 
 
+@telemetry.traced("ndt.compile")
 def compile_scene(scene: Scene, dtype=np.float32) -> SceneData:
-    """Compile a host Scene into the numpy SoA SceneData."""
+    """Compile a host Scene into the numpy SoA SceneData: each step a span
+    of its own (``ndt.compile.<step>``), its leaves counted under
+    ``compile.leaves``."""
     dt = np.dtype(dtype).type
     scene.validate()
-    leaves, materials, kd_items = _flatten(scene.objects, scene.dim)
+    with telemetry.span("ndt.compile.flatten"):
+        leaves, materials, kd_items = _flatten(scene.objects, scene.dim)
     if not leaves:
         raise ValueError("scene has no intersectable objects")
-    _batch_bounds(leaves)
+    telemetry.count("compile.leaves", len(leaves))
+    with telemetry.span("ndt.compile.bounds"):
+        _batch_bounds(leaves)
 
     rank = 0                      # shadow scan ranks of infinite leaves
     for leaf in leaves:
@@ -670,12 +679,16 @@ def compile_scene(scene: Scene, dtype=np.float32) -> SceneData:
             leaf.shadow_rank = rank
             rank += 1
 
-    gates = _kd_cell_gates(leaves, kd_items, scene.dim)
+    with telemetry.span("ndt.compile.kd_gates"):
+        gates = _kd_cell_gates(leaves, kd_items, scene.dim)
     blocks = {}
-    for kind, (field, builder) in _BUILDERS.items():
-        ls = [leaf for leaf in leaves if leaf.kind == kind]
-        if ls:
-            blocks[field] = builder(ls, scene.dim, dt, gates)
+    with telemetry.span("ndt.compile.blocks"):
+        for kind, (field, builder) in _BUILDERS.items():
+            ls = [leaf for leaf in leaves if leaf.kind == kind]
+            if ls:
+                blocks[field] = builder(ls, scene.dim, dt, gates)
+    with telemetry.span("ndt.compile.lights"):
+        lights = compile_lights(scene, dt)
 
     transparent = np.array([1.0 if m.transparent else 0.0
                             for m in materials])
@@ -688,8 +701,7 @@ def compile_scene(scene: Scene, dtype=np.float32) -> SceneData:
         refract_index=np.array([m.refract_index
                                 for m in materials]).astype(dt),
         ambient=scene.ambient.astype(dt), bg=scene.bg.astype(dt),
-        bg_alpha=dt(scene.bg_alpha), lights=compile_lights(scene, dt),
-        **blocks)
+        bg_alpha=dt(scene.bg_alpha), lights=lights, **blocks)
 
 
 def scene_from_numpy(sd) -> SceneData:
@@ -952,9 +964,16 @@ class DenseScene:
     refract_index: torch.Tensor  # [M]
 
 
+def _upload(a, device):
+    """A numpy array as a tensor on ``device``, its bytes counted under
+    ``upload.bytes``."""
+    telemetry.count("upload.bytes", a.nbytes)
+    return torch.as_tensor(a, device=device)
+
+
 def _dense_scene(sd: SceneData, device) -> DenseScene:
     def t(x):
-        return torch.as_tensor(np.asarray(x), device=device)
+        return _upload(np.asarray(x), device)
 
     host = [(field, cls, getattr(sd, field))
             for field, cls in _BLOCK_TYPES.items()
@@ -1029,6 +1048,7 @@ class DeviceScene:
         return self.bnd.device
 
 
+@telemetry.traced("ndt.upload")
 def to_device(sd: SceneData, device) -> DeviceScene:
     """Upload the scene's kernel tables to ``device`` and, for a scene
     compiled in float64, its float64 blocks beside them (``dense``)."""
@@ -1044,5 +1064,4 @@ def to_device(sd: SceneData, device) -> DeviceScene:
         inf_gids=tuple(map(tuple, tab["inf"].tolist())),
         has_transparent=sd.has_transparent, host=sd,
         dense=_dense_scene(sd, device) if f64 else None,
-        **{k: torch.as_tensor(a, device=device).contiguous()
-           for k, a in tab.items()})
+        **{k: _upload(a, device).contiguous() for k, a in tab.items()})

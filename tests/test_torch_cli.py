@@ -221,7 +221,8 @@ def test_cli_yaml_scene_equals_anim6d(tmp_path, monkeypatch):
 
 def test_cli_end_to_end(tmp_path, monkeypatch, capsys):
     """One frame of the empty scene: the PNG, the progress line and the
-    summary; with NDT_PROFILE a torch.profiler chrome trace."""
+    summary; with NDT_PROFILE a torch.profiler chrome trace and the
+    program tracer's counters.json."""
     import json
 
     from ndt_tpu_torch import cli
@@ -237,6 +238,8 @@ def test_cli_end_to_end(tmp_path, monkeypatch, capsys):
     assert "rendered 1 frames in" in out and "for all 300 frames" in out
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]
+    counters = json.loads((tmp_path / "prof" / "counters.json").read_text())
+    assert counters["spans"]["ndt.frame"]["calls"] == 1
 
 
 def test_cli_depth_and_yaml(tmp_path, monkeypatch):

@@ -26,24 +26,26 @@ point lights); or random "600" 5-D (640x480, the random600_5d bench config:
 apply_lights with its stacked shadow_trace / occlusion_trace launches:
 engine._FUSED_SHADOW = False, what NDT_FUSED_SHADOW=0 selects).
 ``--dtype float64`` renders the float64 frame (always the unfused branch,
-traced by the dense path: its per-family distances, the argmin and
-refinement and the winners' normals are spans of their own).  Two
-warm-up frames (one for anim6d and test), three timed frames (host clock
-around torch.cuda.synchronize()), then one frame under torch.profiler (CPU
-+ CUDA activities).  The profiled frame's functions
-are wrapped in record_function spans by this script alone (the port has no
-profiling switch).  It prints:
+traced by the dense path).  Two warm-up frames (one for anim6d and test),
+three timed frames (host clock around torch.cuda.synchronize()), then one
+frame under torch.profiler (CPU + CUDA activities) with the program's
+tracer on (``ndt_tpu_torch/utils/telemetry.py``), whose ``ndt.*`` spans land
+on the profiler's CPU timeline.  It prints:
 
   * the card's name and power limit (nvidia-smi);
   * the unprofiled s/frame;
   * device busy time: the union of kernel, memcpy and memset intervals of
-    the chrome trace inside the frame's span, as ms and as a share of the
-    span, split by kind (the two CUDA kernels by name, copies by
-    direction, the top other kernels by name);
-  * host spans: calls and total ms of compile, upload, primary rays, the
-    escalation probe, the chain and stack loops, the fused steps, the
-    unfused trace and apply_lights with its shadow traces, cull_lists,
-    the shadow culls and the kernel wrappers;
+    the chrome trace inside the frame's ``ndt.frame`` span, as ms and as a
+    share of the span, split by kind (the two CUDA kernels by name, copies
+    by direction, the top other kernels by name);
+  * the program's spans: each name's total and self ms and calls (the
+    tracer's clock) and the kernels launched inside it (a kernel belongs
+    to every span open around its launch call, matched by the
+    ``correlation`` the launch call and the kernel carry);
+  * the device's idle time by the innermost program span open over it (a
+    gap that spans several spans split at their edges);
+  * the tracer's counters: host syncs by span, bounce and stack
+    iterations, the camera's leveling steps, leaves, bytes uploaded;
   * the count of kernel launches in the frame;
   * one JSON line of these numbers.
 
@@ -56,8 +58,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
-import functools
 import json
 import os
 import subprocess
@@ -67,31 +67,6 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# module attribute -> span name of each wrapped function
-SPANS = {
-    ("engine", "compile_scene"): "compile_scene",
-    ("engine", "to_device"): "to_device",
-    ("engine", "gen_rays"): "gen_rays",
-    ("engine", "trace_fused_step"): "trace_fused_step",
-    ("engine", "trace_fused"): "trace_fused",
-    ("engine", "_probe_taint_frac"): "probe",
-    ("engine", "_run_chain"): "chain loop",
-    ("engine", "_run_stack"): "stack loop",
-    ("engine", "trace"): "trace",
-    ("engine", "apply_lights"): "apply_lights",
-    ("shade", "shadow_trace"): "shadow_trace",
-    ("shade", "occlusion_trace"): "occlusion_trace",
-    ("trace", "cull_lists"): "cull_lists",
-    ("trace", "_shadow_culls"): "_shadow_culls",
-    ("trace", "trace_closest"): "trace_closest",
-    ("trace", "trace_any"): "trace_any",
-    ("trace", "trace_shadow"): "trace_shadow",
-    ("trace", "shade_carry"): "shade_carry",
-    ("trace", "shade_local"): "shade_local",
-    ("trace", "_distances"): "dense distances",
-    ("trace", "_closest_with_refine"): "dense argmin + refine",
-    ("trace", "_normals"): "dense normals",
-}
 # name -> (scene, D, frame, frames, config, default width, height)
 SCENES = {"balls": ("balls", 4, 0, 1500, None, 1920, 1080),
           "anim6d": ("anim6d", 6, 1, 4, None, 640, 480),
@@ -127,45 +102,18 @@ def make_scene(name):
     return scn
 
 
-@contextlib.contextmanager
-def wrap_spans(modules):
-    """Wrap the SPANS functions in record_function spans while the block
-    runs."""
-    import torch
-
-    def wrapped(name, fn):
-        @functools.wraps(fn)
-        def call(*a, **k):
-            with torch.profiler.record_function(name):
-                return fn(*a, **k)
-        return call
-
-    orig = {key: getattr(modules[key[0]], key[1]) for key in SPANS}
-    for (mod, attr), name in SPANS.items():
-        setattr(modules[mod], attr, wrapped(name, orig[(mod, attr)]))
-    try:
-        yield
-    finally:
-        for (mod, attr), fn in orig.items():
-            setattr(modules[mod], attr, fn)
-
-
-def union_ms(intervals, lo, hi):
-    """Length in ms of the union of [start, end) us intervals clipped to
-    [lo, hi)."""
-    total, cur_s, cur_e = 0.0, None, None
+def merge(intervals, lo, hi):
+    """The union of [start, end) intervals clipped to [lo, hi), as sorted
+    disjoint [start, end] pairs."""
+    out = []
     for s, e in sorted((max(s, lo), min(e, hi)) for s, e in intervals):
         if e <= s:
             continue
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
         else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total / 1e3
+            out.append([s, e])
+    return out
 
 
 def device_kind(ev):
@@ -183,12 +131,95 @@ def device_kind(ev):
     return "torch: " + name.split("<")[0].split("(")[0][:60]
 
 
-def analyse(trace):
+# the CUDA runtime calls that launch a kernel
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+OUTSIDE = "outside the program's spans"
+
+
+def _open_at(spans, points):
+    """For each point (time, key), the spans of ``spans`` (start, end,
+    name; one thread's, so they nest) open at that time, outermost first:
+    {key: [name, ...]}.  A sweep; ``points`` in any order."""
+    spans = sorted(spans, key=lambda sp: (sp[0], -sp[1]))
+    out, stack, nxt = {}, [], 0
+    for t, key in sorted(points):
+        while nxt < len(spans) and spans[nxt][0] <= t:
+            stack.append(spans[nxt])
+            nxt += 1
+        stack = [sp for sp in stack if sp[1] > t]
+        out[key] = [sp[2] for sp in stack]
+    return out
+
+
+def idle_gaps(evs, lo, hi, busy, names, tid):
+    """Seconds of the device's idle time in [lo, hi) (us) outside the
+    merged ``busy`` intervals, by the innermost user_annotation span of
+    thread ``tid`` whose name ``names(name)`` accepts: a gap that spans
+    several spans is split at their edges, each part charged to the span
+    innermost over it."""
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in evs
+             if e.get("cat") == "user_annotation" and names(e["name"])
+             and e.get("tid") == tid]
+    edges = [lo] + [x for iv in busy for x in iv] + [hi]
+    gaps = [(s, e) for s, e in zip(edges[0::2], edges[1::2]) if e > s]
+    cuts = sorted({t for sp in spans for t in sp[:2] if lo < t < hi})
+    parts, k = [], 0
+    for s, e in gaps:
+        while k < len(cuts) and cuts[k] <= s:
+            k += 1
+        j = k
+        a = s
+        while j < len(cuts) and cuts[j] < e:
+            parts.append((a, cuts[j]))
+            a = cuts[j]
+            j += 1
+        parts.append((a, e))
+    where = _open_at(spans, [((s + e) / 2, i)
+                             for i, (s, e) in enumerate(parts)])
+    out = collections.defaultdict(float)
+    for i, (s, e) in enumerate(parts):
+        out[where[i][-1] if where[i] else OUTSIDE] += (e - s) / 1e6
+    return dict(out)
+
+
+def launches_by_span(evs, lo, hi, names):
+    """The kernels run in [lo, hi) (us) by the user_annotation spans whose
+    name ``names(name)`` accepts: a kernel belongs to every such span open
+    around its launch call on the launching thread, matched to it by the
+    ``correlation`` both events carry.  Returns ({name: kernels},
+    [the set of names open at each kernel's launch])."""
+    kernels = {e["args"]["correlation"] for e in evs
+               if e.get("cat") == "kernel" and lo <= e["ts"] < hi
+               and "correlation" in e.get("args", {})}
+    calls = [e for e in evs if e.get("cat") == "cuda_runtime"
+             and e["name"] in LAUNCH_CALLS
+             and e.get("args", {}).get("correlation") in kernels]
+    sets = []
+    for tid in {e.get("tid") for e in calls}:
+        spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in evs
+                 if e.get("cat") == "user_annotation" and names(e["name"])
+                 and e.get("tid") == tid]
+        sets += [set(names) for names in _open_at(
+            spans, [(e["ts"], i) for i, e in enumerate(calls)
+                    if e.get("tid") == tid]).values()]
+    counts = collections.Counter(n for open_ in sets for n in open_)
+    return dict(counts), sets
+
+
+def _program(name):
+    return name.startswith("ndt.")
+
+
+def analyse(trace, rec=None):
+    """The numbers of one frame's chrome trace (its ``ndt.frame`` span),
+    with ``rec``, the program tracer's take() of the frame: its spans and
+    counters."""
     evs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
-    frame = [e for e in evs if e["name"] == "frame"
+    frame = [e for e in evs if e["name"] == "ndt.frame"
              and e.get("cat") == "user_annotation"]
     if not frame:
-        raise RuntimeError("the trace holds no 'frame' span")
+        raise RuntimeError("the trace holds no 'ndt.frame' span")
     lo = frame[0]["ts"]
     hi = lo + frame[0]["dur"]
     dev = [e for e in evs if e.get("cat") in DEVICE_CATS
@@ -197,53 +228,55 @@ def analyse(trace):
         raise RuntimeError("the profiler recorded no device event: device "
                            "time not measured")
     span_ms = (hi - lo) / 1e3
-    busy_ms = union_ms([(e["ts"], e["ts"] + e["dur"]) for e in dev], lo, hi)
+    busy = merge([(e["ts"], e["ts"] + e["dur"]) for e in dev], lo, hi)
+    busy_ms = sum(e - s for s, e in busy) / 1e3
     by_kind = collections.defaultdict(lambda: [0, 0.0])
     for e in dev:
         k = by_kind[device_kind(e)]
         k[0] += 1
         k[1] += e["dur"] / 1e3
-    host = collections.defaultdict(lambda: [0, 0.0])
-    for e in evs:
-        if (e.get("cat") == "user_annotation" and e["name"] in
-                SPANS.values() and lo <= e["ts"] < hi):
-            h = host[e["name"]]
-            h[0] += 1
-            h[1] += e["dur"] / 1e3
+    rec = rec or {"spans": {}, "counters": {}}
     launches = sum(1 for e in evs if e.get("cat") == "cuda_runtime"
-                   and e["name"] in ("cudaLaunchKernel", "cuLaunchKernel",
-                                     "cudaLaunchKernelExC")
-                   and lo <= e["ts"] < hi)
+                   and e["name"] in LAUNCH_CALLS and lo <= e["ts"] < hi)
+    by_span, _ = launches_by_span(evs, lo, hi, _program)
     return dict(span_ms=span_ms, busy_ms=busy_ms,
                 busy_share=busy_ms / span_ms,
                 device_events=len(dev),
                 kernel_launches=launches,
                 device_by_kind={k: {"n": n, "ms": ms}
                                 for k, (n, ms) in by_kind.items()},
-                host_spans={k: {"calls": n, "ms": ms}
-                            for k, (n, ms) in host.items()})
+                host_spans={k: {"calls": v["calls"], "ms": 1e3 * v["total_s"],
+                                "self_ms": 1e3 * v["self_s"]}
+                            for k, v in rec["spans"].items()},
+                counters=rec["counters"],
+                idle_gaps_s=idle_gaps(evs, lo, hi, busy, _program,
+                                      frame[0].get("tid")),
+                launches_by_span=by_span)
 
 
 def profile_frame(scn, opts, trace_path=None):
-    """One frame of render_frame on the card under torch.profiler, its
-    functions wrapped in spans: analyse()'s numbers."""
+    """One frame of render_frame on the card under torch.profiler with the
+    program's tracer on: analyse()'s numbers."""
     import torch
 
-    from ndt_tpu_torch.render import engine, shade, trace
     from ndt_tpu_torch.render.engine import render_frame
+    from ndt_tpu_torch.utils import telemetry
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with wrap_spans({"engine": engine, "trace": trace, "shade": shade}):
+    telemetry.enable()
+    try:
         with torch.profiler.profile(activities=acts) as prof:
-            with torch.profiler.record_function("frame"):
-                render_frame(scn, opts, device="cuda")
-                torch.cuda.synchronize()
+            render_frame(scn, opts, device="cuda")
+            torch.cuda.synchronize()
+    finally:
+        telemetry.disable()
+    rec = telemetry.take()
     with tempfile.TemporaryDirectory() as tmp:
         path = trace_path or os.path.join(tmp, "frame.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            return analyse(json.load(f))
+            return analyse(json.load(f), rec)
 
 
 def main():
@@ -306,10 +339,17 @@ def main():
     for k, d in sorted(res["device_by_kind"].items(),
                        key=lambda kv: -kv[1]["ms"])[:12]:
         print(f"  {d['ms']:10.3f} ms {d['n']:6d}  {k}")
-    print("[profile] host spans (calls, ms):")
+    print("[profile] the program's spans (total ms, self ms, calls, "
+          "kernels launched inside):")
     for k, d in sorted(res["host_spans"].items(),
                        key=lambda kv: -kv[1]["ms"]):
-        print(f"  {d['ms']:10.3f} ms {d['calls']:6d}  {k}")
+        print(f"  {d['ms']:10.3f} {d['self_ms']:10.3f} {d['calls']:6d} "
+              f"{res['launches_by_span'].get(k, 0):7d}  {k}")
+    print("[profile] idle time by the innermost span (ms):")
+    for k, sec in sorted(res["idle_gaps_s"].items(), key=lambda kv: -kv[1]):
+        print(f"  {1e3 * sec:10.3f}  {k}")
+    print("[profile] counters: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(res["counters"].items())))
     print(json.dumps(dict(card=card, scene=args.scene, width=W, height=H,
                           branch=branch, dtype=args.dtype, rays=rays,
                           unprofiled_s=times,
