@@ -68,6 +68,11 @@ nonzero with no "ok" line):
          unfused path's trace_any) and random "600" 5-D at 640x480
          (10,533 leaves, the budgeted kd gates B = 8, the early exit; the
          unfused path's trace_shadow), every trace and shade mode;
+  3a. the cull (csrc/cull.cu) against its twin at balls 1080p's 2^20
+     primary rays, random150 640x480 with reach and random600's first tile
+     with reach: lists, counts and reach equal to the bit, the kernels'
+     device time and the wrapper's host time a call beside the twin's, and
+     the bound (phase_cull);
   3b. the census: every trace launch of one 640x480 frame, captured where
      the main path calls the wrapper and re-run alone -- random150 fused
      (trace_closest with the early exit), the test scene unfused
@@ -1678,6 +1683,58 @@ def check_tail(torch, K, results, baseline=()):
         print(f"[kernels] {label} trace_tail at {K.RT} rays: "
               f"{turns_line(times)}, twin {r['plain_ms']:.3f} ms (mean of "
               f"3), bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    return ok
+
+
+def phase_cull(torch, K):
+    """Phase 3a: the cull (csrc/cull.cu, kernels.cull_lists on the card)
+    against its twin (cull_lists_ref) at the main path's shapes: balls
+    1080p's first 2^20 primary rays (256 tiles, no reach), random150's
+    640x480 primary rays (75 tiles, reach) and random600's first tile (one
+    tile of 10,533 leaves, reach).  lists, counts and reach equal to the
+    bit; the kernels' device time a call (CUDA events, queue pre-filled),
+    the wrapper's host time a call (the enqueue, no sync), the twin's
+    both, and the bound: the o and v reads and the outputs' writes over
+    3.35 TB/s."""
+    ok = True
+    cases = (
+        ("balls 1080p 2^20 rays", primary_rays(balls_scene(), 1920, 1080,
+                                                1 << 20), False),
+        ("random150 640x480, reach",
+         quiet(primary_rays, scene("random", 5, config="150"), 640, 480),
+         True),
+        ("random600 one tile, reach",
+         quiet(primary_rays, quiet(scene, "random", 5, config="600"), 640,
+               480, K.RT), True))
+    for label, (sd, o, v, live), reach in cases:
+        def mine():
+            return K.cull_lists(sd, o, v, live=live, want_reach=reach)
+
+        def twin():
+            return K.cull_lists_ref(sd, o, v, live=live, want_reach=reach)
+
+        got, ref = mine(), twin()
+        diff = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                   for a, b in zip(got, ref))
+        host = []
+        for fn, n in ((mine, 20), (twin, 3)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            host.append((time.perf_counter() - t0) / n * 1e3)
+            torch.cuda.synchronize()
+        ms = cuda_ms(mine, 20, prefill=True)
+        plain = cuda_ms(twin, 3, prefill=True)
+        bound_ms, _ = bound(call_bytes(o, v, live, *got), 0)
+        rok = diff == 0
+        ok &= rok
+        print(f"[cull] {label}: {o.shape[0] // K.RT} tiles x "
+              f"{sd.n_total} leaves, {int(got[1].sum())} listed; kernels "
+              f"{ms:.4f} ms (device), wrapper {host[0]:.4f} ms (host); "
+              f"twin {plain:.3f} ms (device), {host[1]:.3f} ms (host); "
+              f"bound {bound_ms:.4f} ms (bytes); elements differing from "
+              f"the twin {diff} -> {'PASS' if rok else 'FAIL'}")
     return ok
 
 
@@ -3615,6 +3672,7 @@ def main(argv=None):
     ok = True
     phases = (("kernels", lambda: phase_kernels(torch, K, results,
                                                 baseline)),
+              ("cull", lambda: phase_cull(torch, K)),
               ("census", lambda: phase_census(torch, K, baseline)),
               ("golden", lambda: phase_golden(torch, K, card, results)),
               ("registry", lambda: phase_registry(torch, card)),

@@ -51,6 +51,11 @@ SHADE_ARGTYPES = ([_P] * 8 + [ctypes.c_char_p, _I] + [_P] * 3 + [_I] * 4
 CLOSEST_ARGTYPES = [_P] * 8 + [_I] + [_P] * 5 + [_I, _I, _P]
 WALK_ARGTYPES = [_P] * 8 + [_I] + [_P] * 2 + [_I, _I, _P]
 ANY_CULL_ARGTYPES = [_P] * 6 + [_I] + [_P] * 4 + [_I, _I, _P]
+# ndt_cull_d<D>'s (csrc/cull.cu): o, its row stride, v, its row stride,
+# live, limit, want_reach, bnd, aabb, the five family sizes, lists, counts,
+# reach, scratch, its bytes
+CULL_ARGTYPES = ([_P, _I, _P, _I, _P, _P, _I, _P, _P] + [_I] * 5 + [_P] * 4
+                 + [ctypes.c_longlong, _I, _I, _P])
 
 
 def find_nvcc() -> str:
@@ -149,7 +154,8 @@ ENTRIES = (("ndt_trace_closest", CLOSEST_ARGTYPES),
            ("ndt_trace_any", WALK_ARGTYPES),
            ("ndt_trace_any_cull", ANY_CULL_ARGTYPES),
            ("ndt_trace_shadow", WALK_ARGTYPES),
-           ("ndt_shade", SHADE_ARGTYPES))
+           ("ndt_shade", SHADE_ARGTYPES),
+           ("ndt_cull", CULL_ARGTYPES))
 
 
 def bind(lib, d, entries=ENTRIES):

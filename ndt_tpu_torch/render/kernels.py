@@ -3,8 +3,9 @@ each beside its plain PyTorch twin.
 
 Counterpart of ``ndt_tpu/render/pallas_trace.py``:
 
-  cull_lists        <- cull_lists (L1490), the XLA interval pass: torch ops,
-                       with the reach-sorted lists of the early exit
+  cull_lists        <- cull_lists (L1490), the XLA interval pass, with the
+                       reach-sorted lists of the early exit: csrc/cull.cu,
+                       twin cull_lists_ref
   trace_closest     <- pallas_trace(mode="closest") (L1730, _make_kernel
                        L565) over all five families: spheres, planes,
                        quadrics with slabs and kd leaf-cell gates
@@ -92,6 +93,8 @@ EE_MIN_OBJECTS = 192
 # "trace_tail" when its lists are walked slot by slot (trace_tail_slots),
 # and an any-mode launch once more under "trace_any_cull" when its warps
 # are culled (any_warp_cull).
+# A cull on the card counts once under "cull" and once more under
+# "cull_reach" (reach-sorted lists) or "cull_partition" (survivors first).
 # A shade launch counts once under its mode ("shade_carry",
 # "shade_escalate", "shade_local"), once more under "shade_point" /
 # "shade_spot" / "shade_area" when its lights include a point / spot /
@@ -102,7 +105,7 @@ launch_counts = telemetry.launch_counts
 launch_counts.update((k, 0) for k in (
     "trace_closest", "trace_gated", "trace_any", "trace_shadow",
     "trace_facets", "trace_early_exit", "trace_tail", "trace_any_cull",
-    "shade_carry",
+    "cull", "cull_reach", "cull_partition", "shade_carry",
     "shade_escalate", "shade_local", "shade_point", "shade_spot",
     "shade_area", "shade_facets"))
 reset_launch_counts = telemetry.reset_launch_counts
@@ -275,7 +278,7 @@ def shade_walk_group(n_pairs, cap):
 
 
 # --------------------------------------------------------------------------
-# X1: per-tile conservative cull (torch ops)
+# X1: per-tile conservative cull: csrc/cull.cu, twin cull_lists_ref
 
 
 def _imul(alo, ahi, blo, bhi):
@@ -283,9 +286,8 @@ def _imul(alo, ahi, blo, bhi):
     return cands.amin(0), cands.amax(0)
 
 
-@telemetry.traced("ndt.cull")
-def cull_lists(scn: DeviceScene, o, v, live=None, limit=None,
-               want_reach=False):
+def cull_lists_ref(scn: DeviceScene, o, v, live=None, limit=None,
+                   want_reach=False):
     """Per-tile object culling (pallas_trace.cull_lists, L1490-1718): for
     every RT-ray tile, interval arithmetic over the tile's origin/direction
     bounds against each leaf's bounding sphere, then the padded geometry
@@ -433,6 +435,64 @@ def cull_lists(scn: DeviceScene, o, v, live=None, limit=None,
         slots = torch.arange(sz, device=o.device)[None, :]
         lists[:, off:off + sz] = torch.where(slots < cnt[:, None],
                                              order + off, 0).to(torch.int32)
+    if want_reach:
+        return lists, counts, reach
+    return lists, counts
+
+
+def cull_scratch_bytes(n_tiles, n_leaves, dim, want_reach):
+    """The scratch of one csrc/cull.cu call: per tile its bounds (4 D + 2
+    f32), its leaves' keys (f32, with reach) and flags (one byte each)."""
+    return n_tiles * ((4 * dim + 2) * 4 + n_leaves * (5 if want_reach else 1))
+
+
+def _row_stride(x, D):
+    """(x, its row stride) as csrc/cull.cu reads rays: rows of D contiguous
+    floats, D apart or all one row (stride 0: an expanded [1, D])."""
+    if x.stride(1) != 1 or x.stride(0) not in (0, D):
+        x = x.contiguous()
+    return x, x.stride(0)
+
+
+@telemetry.traced("ndt.cull")
+def cull_lists(scn: DeviceScene, o, v, live=None, limit=None,
+               want_reach=False):
+    """The per-tile cull (see cull_lists_ref): the twin on the CPU, the
+    csrc/cull.cu kernels on the card (at most three launches, no host
+    sync), with lists, counts and reach equal to the twin's to the bit."""
+    if o.device.type == "cpu":
+        return cull_lists_ref(scn, o, v, live, limit, want_reach)
+    R, D = o.shape
+    if D != scn.dim or R % RT or R == 0:
+        raise ValueError(f"rays must be [k*{RT}, {scn.dim}], got "
+                         f"{tuple(o.shape)}")
+    dev, N = scn.device, scn.n_total
+    fn = _entry(o, "ndt_cull", D)
+    o, o_stride = _row_stride(o, D)
+    v, v_stride = _row_stride(v, D)
+    _check("o", o, (R, D), torch.float32, dev, contiguous=False)
+    _check("v", v, (R, D), torch.float32, dev, contiguous=False)
+    if live is not None:
+        live = live.contiguous()
+        _check("live", live, (R,), torch.bool, dev)
+    if limit is not None:
+        limit = limit.contiguous()
+        _check("limit", limit, (R,), torch.float32, dev)
+    _check("bnd", scn.bnd, (N, D + 1), torch.float32, dev)
+    _check("aabb", scn.aabb, (N, 2, D), torch.float32, dev)
+    n_tiles, n_list = R // RT, max(N, 1)
+    lists = torch.empty((n_tiles, n_list), dtype=torch.int32, device=dev)
+    counts = torch.empty((n_tiles, N_FAMS), dtype=torch.int32, device=dev)
+    reach = (torch.empty((n_tiles, n_list), dtype=torch.float32, device=dev)
+             if want_reach else None)
+    n_scratch = cull_scratch_bytes(n_tiles, N, D, want_reach)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
+    err = fn(_p(o), o_stride, _p(v), v_stride, _p(live), _p(limit),
+             int(want_reach), _p(scn.bnd), _p(scn.aabb), scn.n_sph,
+             scn.n_pln, scn.n_quad, scn.n_fct, scn.n_hf, _p(lists),
+             _p(counts), _p(reach), _p(scratch), n_scratch, R, *_target(o))
+    _raise_on(err, "cull")
+    _count("cull", "cull_reach" if want_reach else "cull_partition")
     if want_reach:
         return lists, counts, reach
     return lists, counts
@@ -971,12 +1031,12 @@ def trace_closest_ref(scn: DeviceScene, o, v, aux, lists, counts,
     return t, mat, torch.stack(nrm, 1), props
 
 
-def _check(name, x, shape, dtype, device):
+def _check(name, x, shape, dtype, device, contiguous=True):
     if x.shape != shape or x.dtype != dtype or x.device != device:
         raise ValueError(f"{name}: expected {tuple(shape)} {dtype} on "
                          f"{device}, got {tuple(x.shape)} {x.dtype} on "
                          f"{x.device}")
-    if not x.is_contiguous():
+    if contiguous and not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -1569,6 +1629,7 @@ def _shade_scratch(scn, n_lights, R, device):
 def _raise_on(err, name):
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
-                           "(-1: no kernel instance for this A; -2: a "
+                           "(-1: no kernel instance for this A, or "
+                           "arguments the entry point does not take; -2: a "
                            "light kind the kernel does not take; -3: the "
                            "rays do not lie on the launch's device)")

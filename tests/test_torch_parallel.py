@@ -323,13 +323,22 @@ def test_wrappers_launch_on_the_tensors_card(monkeypatch):
     K.shade_carry(card, o, v, t, mat, nrm, props, lvec,
                   [(lists, counts)] * len(kinds), kinds, True,
                   tensor((R, 3)), tensor((R,)), tensor((R, 3)), live)
+    K.cull_lists(card, o, v, live=live, limit=tensor((R,)), want_reach=True)
+    K.cull_lists(card, o, v[:1].expand(R, D))
     sigs = {"ndt_trace_closest": build.CLOSEST_ARGTYPES,
             "ndt_trace_any": build.WALK_ARGTYPES,
             "ndt_trace_shadow": build.WALK_ARGTYPES,
-            "ndt_shade": build.SHADE_ARGTYPES}
+            "ndt_shade": build.SHADE_ARGTYPES,
+            "ndt_cull": build.CULL_ARGTYPES}
     assert [name for name, _ in calls] == [
         f"{n}_d{D}" for n in ("ndt_trace_closest", "ndt_trace_any",
-                              "ndt_trace_shadow", "ndt_shade", "ndt_shade")]
+                              "ndt_trace_shadow", "ndt_shade", "ndt_shade",
+                              "ndt_cull", "ndt_cull")]
+    # the cull's row strides (v expanded from one row: 0) and reach flag
+    (_, _, _, vs, _, lim, reach), (_, os_, _, vs2, live2, _, reach2) = (
+        args[:7] for _, args in calls[-2:])
+    assert (vs, reach, os_, vs2, reach2) == (D, 1, D, 0, 0)
+    assert lim.value and live2.value is None
     for name, args in calls:
         assert len(args) == len(sigs[name.rsplit("_d", 1)[0]]), name
         r, ordinal, stream = args[-3:]
@@ -339,6 +348,8 @@ def test_wrappers_launch_on_the_tensors_card(monkeypatch):
     lib.rc = -3
     with pytest.raises(RuntimeError, match="another|launch's device"):
         K.trace_any(card, o, v, aux, lists, counts)
+    with pytest.raises(RuntimeError, match="another|launch's device"):
+        K.cull_lists(card, o, v, live=live)
 
 
 def test_launch_counts_survive_threads():

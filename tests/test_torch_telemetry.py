@@ -392,20 +392,22 @@ def test_one_item_counts_one_sync():
 
 @pytest.mark.gpu
 def test_cull_launches_charged_to_the_cull():
-    """On the card, every kernel a cull launches is charged to its
+    """On the card, every kernel a cull launches (csrc/cull.cu: at most
+    three for the one call launch_counts["cull"] counts) is charged to its
     ``ndt.cull`` span in the profiler's trace, and a kernel launched
     outside it is not."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from _torch_common import port_primary_rays
 
-    from ndt_tpu_torch.render.kernels import cull_lists
+    from ndt_tpu_torch.render.kernels import cull_lists, launch_counts
     from ndt_tpu_torch.utils import telemetry
 
     pf = _tool()
     scn, o, v, _ = port_primary_rays("cuda")
     cull_lists(scn, o, v)
     torch.cuda.synchronize()
+    n0 = launch_counts["cull"]
     telemetry.enable()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -424,5 +426,9 @@ def test_cull_launches_charged_to_the_cull():
                    if e.get("ph") == "X"]
     by_span, _ = pf.launches_by_span(evs, 0, float("inf"),
                                      lambda n: n.startswith("ndt."))
-    assert by_span["ndt.cull"] > 10
+    assert launch_counts["cull"] == n0 + 1
+    assert 1 <= by_span["ndt.cull"] <= 3
+    cull_kernels = sum(e.get("cat") == "kernel" and "cull_" in e["name"]
+                       for e in evs)
+    assert cull_kernels == by_span["ndt.cull"]
     assert by_span["ndt.frame"] >= by_span["ndt.cull"] + 2
