@@ -9,7 +9,9 @@ of the per-layer metrics it reports.  The window drives the program's
 frame sequence, back to back; each frame ends in the numpy image it
 returns.  With tracing on, the readers' host spans wrap the program's
 functions through the window, and after it a few more frames run under
-torch.profiler.
+torch.profiler.  With tracing off, a cell with an end-to-end metric from
+the device trace runs its window under the profiler's CUDA activity
+alone (``profile.DeviceBusy``).
 """
 
 from __future__ import annotations
@@ -51,7 +53,13 @@ def _load_json(path):
 
 
 def _reader(name):
+    """The reader ``metrics/<name>.py``; a metric split by the end-to-end
+    metric it moves (``compile_ms.frame_s``) without a file of its own is
+    read by its base's (``metrics/compile_ms.py``)."""
     path = os.path.join(HERE, "metrics", f"{name}.py")
+    if not os.path.exists(path):
+        name = name.split(".")[0]
+        path = os.path.join(HERE, "metrics", f"{name}.py")
     spec = importlib.util.spec_from_file_location(
         f"portbench_metric_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
@@ -219,6 +227,7 @@ class TraceData:
     launches: list = None             # resolved entry-point calls
     launch_counts: dict = None        # kernels.launch_counts of them
     card: str = ""
+    window_s: float = None            # the window's host-clock seconds
 
 
 def card_line():
@@ -351,6 +360,14 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
     # collector from scanning it in every frame
     gc.collect()
     gc.freeze()
+    # an end-to-end metric read from the device trace (the card's busy
+    # time a frame) has the untraced window run under the profiler, its
+    # device activity alone; the profiler starts within set-up
+    window_prof = None
+    if cuda and not trace and any(m["source"] == "device_trace"
+                                  for m in cell.end_to_end):
+        window_prof = profile.DeviceBusy()
+        window_prof.start()
     setup_s = time.perf_counter() - t_start
 
     patches = Patches()
@@ -383,13 +400,16 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
                 break
         window_s = f1 - t0
         frames = k
-        log(f"[window] {frames} frames in {window_s!r} s; each frame's s: "
-            + " ".join(f"{x:.4f}" for x in lat))
+        busy_s = window_prof.stop() if window_prof is not None else None
+        log(f"[window] {frames} frames in {window_s!r} s"
+            + ("" if busy_s is None else f", the card busy {busy_s!r} s")
+            + "; each frame's s: " + " ".join(f"{x:.4f}" for x in lat))
 
         data = None
         if trace:
             data = TraceData(frames=frames, latencies=lat,
-                             span_s=dict(spans.seconds), card=card_line())
+                             span_s=dict(spans.seconds), card=card_line(),
+                             window_s=window_s)
             launches = Launches()
             for name in LAUNCH_ENTRIES:
                 patches.wrap("ndt_tpu_torch.render.trace", name,
@@ -409,6 +429,8 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
             data.launch_counts = dict(kernels.launch_counts)
     finally:
         patches.remove()
+        if window_prof is not None:
+            window_prof.stop()
 
     peak = int(torch.cuda.max_memory_allocated()) if cuda else 0
     gc.unfreeze()
@@ -423,8 +445,18 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
+        # setup_s; a device_trace metric: the card's busy milliseconds a
+        # frame over the window (none without a card); any other: the
+        # window's host-clock seconds a frame
         for m in cell.end_to_end:
-            value = setup_s if m["name"] == "setup_s" else window_s / frames
+            if m["name"] == "setup_s":
+                value = setup_s
+            elif m["source"] == "device_trace":
+                if busy_s is None:
+                    continue
+                value = 1e3 * busy_s / frames
+            else:
+                value = window_s / frames
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
     # the check: the sampled frames of the window against the reference

@@ -1,6 +1,7 @@
 """device_idle_pct: the share of the traced frames' span in which the
 card ran no kernel, copy or memset (the union of their intervals, from
-the profiler), in %.  Moves frame_s."""
+the profiler), in %.  Moves frame_device_ms;
+as ``device_idle_pct.frame_s``, frame_s."""
 
 
 def read(data):

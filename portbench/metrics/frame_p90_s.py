@@ -1,6 +1,6 @@
 """frame_p90_s: the 90th percentile of the host-clock time of the
 window's frames (s), each frame from the call of render_frame to its
-image.  Moves frame_s."""
+image.  Moves frame_device_ms."""
 
 import numpy as np
 

@@ -1,6 +1,7 @@
 """kernel_ms: device milliseconds of the program's own CUDA kernels
 (``portbench.profile.PROGRAM_KERNELS``, by name) per traced frame, from
-the profiler.  Moves frame_s."""
+the profiler.  Moves frame_device_ms;
+as ``kernel_ms.frame_s``, frame_s."""
 
 
 def read(data):

@@ -3,7 +3,8 @@
 calls (``portbench.bounds``: bytes over the card's bandwidth) over the
 summed device time of their kernels from the profiler.  Nothing is read
 where the profiler saw fewer walk kernels than there were entry-point
-calls (dropped events would leave time out).  Moves frame_s."""
+calls (dropped events would leave time out).  Moves frame_device_ms;
+as ``kernels_roofline.frame_s``, frame_s."""
 
 from portbench import bounds
 from portbench.profile import WALK_KERNELS

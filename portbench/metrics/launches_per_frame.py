@@ -1,6 +1,7 @@
 """launches_per_frame: the CUDA kernels the profiler saw run in the
 traced frames, over those frames: the host's enqueue count of a frame.
-Moves frame_s."""
+Moves frame_device_ms;
+as ``launches_per_frame.frame_s``, frame_s."""
 
 
 def read(data):

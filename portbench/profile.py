@@ -9,6 +9,7 @@ kernel, memcpy and memset intervals in it (the busy time), each device
 operation's time by name, the program's own kernels by name, the kernels
 run, and the idle gaps by the innermost layer span the host was in.
 The union arithmetic is that of ``tools/profile_frame.py``.
+``DeviceBusy`` reads the card's busy time alone over an untraced window.
 """
 
 from __future__ import annotations
@@ -127,6 +128,47 @@ def analyse(trace):
         program_kernels={k: {"n": n, "s": s} for k, (n, s) in prog.items()},
         device_ops=sorted(ops.items(), key=lambda kv: -kv[1]),
         idle_gaps=sorted(gaps.items(), key=lambda kv: -kv[1]))
+
+
+def busy_seconds(trace):
+    """The union of a chrome trace's kernel, memcpy and memset intervals,
+    in seconds."""
+    return sum(e - s for s, e in _merge(
+        [(e["ts"], e["ts"] + e["dur"]) for e in trace["traceEvents"]
+         if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS])) / 1e6
+
+
+class DeviceBusy:
+    """The card's busy seconds from ``start`` to ``stop``: torch.profiler
+    recording the CUDA activity alone (no host op), its trace read by
+    ``busy_seconds``."""
+
+    def __init__(self):
+        import torch
+
+        self._prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        self._on = False
+        self.busy_s = None
+
+    def start(self):
+        self._prof.start()
+        self._on = True
+
+    def stop(self):
+        """Stop (once) and return the busy seconds."""
+        import torch
+
+        if self._on:
+            self._on = False
+            torch.cuda.synchronize()
+            self._prof.stop()
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                self._prof.export_chrome_trace(path)
+                with open(path) as f:
+                    self.busy_s = busy_seconds(json.load(f))
+        return self.busy_s
 
 
 def profile_frames(render, n_frames):

@@ -1,6 +1,8 @@
 """The reference renderer's scene: the plain scene data worked into one
 block of tensors per intersection family (the C's object plugins), with
-the kd leaf-cell gates of the C's tree (kd-tree.c).
+the kd leaf-cell gates of the C's tree (kd-tree.c): the exact tree up to
+``KD_EXACT_MAX`` kd items, past it the budgeted build that the program
+runs there (``kd_budget.py``).
 
 Plain scene data (what ``portbench/scenes`` generators return):
 ``{"dim", "bg", "ambient", "camera": {"view_point", "view_target", "up"},
@@ -13,8 +15,10 @@ orthotope, and an hcube's orthotope m-faces for m = 2..D-1,
 hcube.c:33-152); facets; hfacets.  Orthotopes, facets and hfacets are
 visible only through a leaf cell of the C's kd tree that holds their
 object (their EPSILON shells and the hfacets' phantom hypersurfaces are
-what the C's traversal shows of them).  An hfacet's bounding sphere,
-which bounds its phantom hits, is the C's fit (``bounding.py``).
+what the C's traversal shows of them); past ``KD_EXACT_MAX`` items only
+through the item's budgeted cells, a superset of its exact ones.  An
+hfacet's bounding sphere, which bounds its phantom hits, is the C's fit
+(``bounding.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from portbench.reference.bounding import least_sphere
+from portbench.reference.kd_budget import budgeted_cells
 from portbench.reference.vec import (BIG, EPSILON, np_angle, np_dist,
                                      np_l2norm, np_orthogonalize, np_proj,
                                      np_unitize)
@@ -33,7 +38,7 @@ from portbench.reference.vec import (BIG, EPSILON, np_angle, np_dist,
 NOT_INFINITE = 1 << 30
 # kd cells per item past which an item's gate is the union of its cells
 GATE_MAX = 24
-# kd items the exact build takes (past it the program's budgeted build)
+# kd items the exact build takes (past it the budgeted build)
 KD_EXACT_MAX = 256
 FAMILIES = ("spheres", "planes", "quadrics", "facets", "hfacets")
 _FAMILY = {"sphere": "spheres", "hplane": "planes", "hdisk": "planes",
@@ -338,12 +343,11 @@ def build_scene(data, dtype, device):
 
     cells = bb_lo = bb_hi = None
     if items and any(_gated(lf) and lf["item"] >= 0 for lf in leaves):
-        if len(items) > KD_EXACT_MAX:
-            raise ValueError(f"{len(items)} kd items: the reference builds "
-                             f"the exact tree of at most {KD_EXACT_MAX}")
         lowers = np.stack([lo for lo, _ in items])
         uppers = np.stack([hi for _, hi in items])
-        cells = kd_leaf_cells(lowers, uppers)
+        build = kd_leaf_cells if len(items) <= KD_EXACT_MAX \
+            else budgeted_cells
+        cells = build(lowers, uppers)
         bb_lo, bb_hi = lowers.min(0), uppers.max(0)
 
     def tensor(x):

@@ -96,20 +96,23 @@ def test_seed_keeps_the_work(config):
     assert moved == (cfg["generator"] == "balls_anim")
 
 
-def test_random_generator_draws_the_c_scene():
-    """random-5d-150's objects and lights are the C's own draw (the
-    program's random scene module follows the C's drand48 stream), in the
-    C's order."""
+@pytest.mark.parametrize("config, count", [("random-5d-150", "150"),
+                                           ("random-5d-600", "600")])
+def test_random_generator_draws_the_c_scene(config, count):
+    """A random configuration's objects and lights are the C's own draw
+    (the program's random scene module follows the C's drand48 stream),
+    in the C's order."""
     from ndt_tpu_torch.scene import Scene
     from ndt_tpu_torch.scenes import get_scene
 
-    entry = {c["name"]: c for c in BENCH["configs"]}["random-5d-150"]
+    entry = {c["name"]: c for c in BENCH["configs"]}[config]
     with open(os.path.join(ROOT, entry["file"])) as f:
         cfg = json.load(f)
     data = scenegen.frames(cfg, 2 ** 31 + 3).frame(0)
     objs = data["objects"]
     scn = Scene("random", cfg["dim"])
-    get_scene("random").scene_setup(scn, cfg["dim"], 0, 1, "150")
+    get_scene("random").scene_setup(scn, cfg["dim"], 0, 1, count)
+    assert len(objs) == len(scn.objects) == cfg["objects"]
     for o, c in zip(objs, scn.objects):
         assert o["type"] == c.type_name and o["flag"] == c.flag
         assert o["size"] == c.size and o["transparent"] == c.transparent

@@ -26,6 +26,7 @@ from portbench.reference.render import render  # noqa: E402
 
 GOLDENS = os.path.join(ROOT, "tests", "goldens")
 CONFIG = os.path.join(ROOT, "portbench", "configs", "balls-4d-1080p.json")
+CONFIG_600 = os.path.join(ROOT, "portbench", "configs", "random-5d-600.json")
 _LIGHT_NAMES = {0: "ambient", 1: "point", 2: "directional", 3: "spot"}
 
 
@@ -80,14 +81,27 @@ def test_reference_meets_golden_bar(scene, dim, config, size, golden):
 
 
 def test_reference_loads_nothing_of_the_program():
+    """Nor does the budgeted kd build (``kd_budget.py``) that a scene past
+    256 kd items takes: random-5d-600's 600 items, built with the scene."""
     code = (
         "import sys, json, numpy as np, torch\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "from portbench.scenes.balls_anim import Frames\n"
+        "from portbench.scenes import random_static\n"
+        "from portbench.reference import kd_budget, scene\n"
         "from portbench.reference.render import render\n"
         f"cfg = json.load(open({CONFIG!r}))\n"
         "img = render(Frames(cfg, 5).frame(0), 16, 12, torch.float64, 'cpu')\n"
         "assert np.isfinite(img).all()\n"
+        f"cfg = json.load(open({CONFIG_600!r}))\n"
+        "built = []\n"
+        "def budgeted(lo, hi):\n"
+        "    built.append(len(lo))\n"
+        "    return kd_budget.budgeted_cells(lo, hi)\n"
+        "scene.budgeted_cells = budgeted\n"
+        "data = random_static.Frames(cfg, 5).frame(0)\n"
+        "scene.build_scene(data, torch.float64, 'cpu')\n"
+        "assert built == [600]\n"
         "print(' '.join(sorted({m.split('.')[0] for m in sys.modules})))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, check=True).stdout

@@ -33,10 +33,12 @@ from portbench import control, harness  # noqa: E402
 
 SEED = 2 ** 31 + 97
 # the CPU runs' frame sizes: the program's CPU twins are slow, and
-# random-5d-150's camera sees its objects in ~2% of the pixels, so only
-# the balls cells run on the CPU; every cell runs on the card
+# random-5d-150's camera sees its objects in ~2% of the pixels, and
+# random-5d-600's frame compiles 10533 leaves, so only the balls cells run
+# on the CPU; every cell runs on the card
 CPU_SIZES = {"balls4d_1080p_anim": (48, 32), "balls4d_1080p_f64": (48, 32)}
-CELLS = ["balls4d_1080p_anim", "random5d_150_static", "balls4d_1080p_f64"]
+CELLS = ["balls4d_1080p_anim", "random5d_150_static", "balls4d_1080p_f64",
+         "random5d_600_static"]
 
 
 def _needs_card():
